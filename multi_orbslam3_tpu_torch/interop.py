@@ -1,0 +1,48 @@
+"""Numpy in and out of the port's MapState and FrameFeatures.
+
+The arrays are keyed by the JAX package's field names (its MapState and
+FrameFeatures), so state built by one package can be carried to the other.
+uint32 descriptor words become int32 bit patterns (``.view(np.int32)``)
+on the way in and uint32 again on the way out. Nothing here imports jax.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from multi_orbslam3_tpu_torch.frontend.extractor import FrameFeatures
+from multi_orbslam3_tpu_torch.map.mapstate import MapState
+
+_DESC_FIELDS = ("kf_desc", "mp_desc", "desc")
+
+
+def _to_torch(name: str, a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if name in _DESC_FIELDS:
+        a = a.astype(np.uint32).view(np.int32)
+    return torch.from_numpy(np.array(a)).to(device)   # a writable copy
+
+
+def _to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
+    a = t.detach().cpu().numpy()
+    return a.view(np.uint32) if name in _DESC_FIELDS else a
+
+
+def map_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> MapState:
+    return MapState(**{f: _to_torch(f, d[f], device) for f in MapState._fields})
+
+
+def map_to_numpy(m: MapState) -> Dict[str, np.ndarray]:
+    return {f: _to_numpy(f, getattr(m, f)) for f in MapState._fields}
+
+
+def features_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> FrameFeatures:
+    return FrameFeatures(**{f: _to_torch(f, d[f], device)
+                            for f in FrameFeatures._fields})
+
+
+def features_to_numpy(f: FrameFeatures) -> Dict[str, np.ndarray]:
+    return {k: _to_numpy(k, getattr(f, k)) for k in FrameFeatures._fields}
