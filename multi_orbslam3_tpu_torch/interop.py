@@ -1,9 +1,10 @@
-"""Numpy in and out of the port's MapState and FrameFeatures.
+"""Numpy in and out of the port's MapState, FrameFeatures, Vocabulary,
+KeyframeDatabase and Sim3.
 
-The arrays are keyed by the JAX package's field names (its MapState and
-FrameFeatures), so state built by one package can be carried to the other.
-uint32 descriptor words become int32 bit patterns (``.view(np.int32)``)
-on the way in and uint32 again on the way out. Nothing here imports jax.
+The arrays are keyed by the JAX package's field names, so state built by
+one package can be carried to the other. uint32 descriptor and centroid
+words become int32 bit patterns (``.view(np.int32)``) on the way in and
+uint32 again on the way out. Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -13,7 +14,10 @@ from typing import Dict
 import numpy as np
 import torch
 
+from multi_orbslam3_tpu_torch.bow import vocabulary as vocm
+from multi_orbslam3_tpu_torch.bow.database import KeyframeDatabase
 from multi_orbslam3_tpu_torch.frontend.extractor import FrameFeatures
+from multi_orbslam3_tpu_torch.geometry.sim3 import Sim3
 from multi_orbslam3_tpu_torch.map.mapstate import MapState
 
 _DESC_FIELDS = ("kf_desc", "mp_desc", "desc")
@@ -46,3 +50,27 @@ def features_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> FrameFeatures
 
 def features_to_numpy(f: FrameFeatures) -> Dict[str, np.ndarray]:
     return {k: _to_numpy(k, getattr(f, k)) for k in FrameFeatures._fields}
+
+
+def vocabulary_from_numpy(levels, idf, branching: int, depth: int,
+                          device="cpu") -> vocm.Vocabulary:
+    """The JAX Vocabulary's arrays (uint32 level tables, float32 idf), as
+    np.asarray of its fields or the arrays of a saved .npz."""
+    return vocm.from_numpy(levels, idf, branching, depth, device)
+
+
+def database_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> KeyframeDatabase:
+    return KeyframeDatabase(**{f: _to_torch(f, d[f], device)
+                               for f in KeyframeDatabase._fields})
+
+
+def database_to_numpy(db: KeyframeDatabase) -> Dict[str, np.ndarray]:
+    return {f: _to_numpy(f, getattr(db, f)) for f in KeyframeDatabase._fields}
+
+
+def sim3_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> Sim3:
+    return Sim3(**{f: _to_torch(f, d[f], device) for f in Sim3._fields})
+
+
+def sim3_to_numpy(S: Sim3) -> Dict[str, np.ndarray]:
+    return {f: _to_numpy(f, getattr(S, f)) for f in Sim3._fields}

@@ -21,6 +21,7 @@ import torch
 from multi_orbslam3_tpu_torch.frontend.extractor import FrameFeatures
 from multi_orbslam3_tpu_torch.frontend.kernels import popcount32
 from multi_orbslam3_tpu_torch.geometry import camera as cam
+from multi_orbslam3_tpu_torch.geometry import sim3
 
 NO_MP = -1
 
@@ -272,6 +273,29 @@ def covisibility_row(m: MapState, kf) -> torch.Tensor:
                                                           device=m.device), 0)
 
 
+def kf_mp_mask(m: MapState) -> torch.Tensor:
+    """(K, P) bool: keyframe k observes valid landmark p."""
+    K, N = m.kf_mp.shape
+    P = m.max_mp
+    ok = (m.kf_mp >= 0) & m.kf_feat_valid & m.kf_valid[:, None]
+    rows = torch.arange(K, device=m.device).repeat_interleave(N)
+    cols = torch.where(ok, m.kf_mp, P).reshape(-1).long()   # P: sacrificial
+    mask = torch.zeros((K, P + 1), dtype=torch.bool, device=m.device)
+    mask = mask.index_put((rows, cols), torch.ones_like(cols, dtype=torch.bool))
+    return mask[:, :P] & m.mp_valid[None, :]
+
+
+def covisibility_matrix(m: MapState) -> torch.Tensor:
+    """(K, K) int32 shared-landmark counts (0 on the diagonal), W = A A^T
+    over the observation mask. The JAX package multiplies in bf16 with a
+    float32 result; a bf16 torch matmul returns bf16, which rounds counts
+    above 256, so this one runs in float32 (TF32 is off package-wide):
+    every count is an exact integer below 2^24."""
+    A = kf_mp_mask(m).to(_F32)
+    W = A @ A.T
+    return (W - torch.diag(torch.diagonal(W))).to(_I32)
+
+
 def update_found_visible(m: MapState, feat_mp: torch.Tensor,
                          visible: torch.Tensor) -> MapState:
     """Per-frame landmark statistics: found += 1 for each inlier landmark,
@@ -418,3 +442,23 @@ def erase_active_map(m: MapState) -> MapState:
     kf_mp = torch.where((kf_mp >= 0) & mp_gone[point], NO_MP, kf_mp)
     return m._replace(kf_valid=m.kf_valid & ~kf_gone,
                       mp_valid=m.mp_valid & ~mp_gone, kf_mp=kf_mp)
+
+
+def merge_active_into(m: MapState, target_map, S_loop) -> MapState:
+    """Weld the active sub-map into `target_map` (the client-side Atlas
+    merge). S_loop is a sim3.Sim3 with p_cur ~ S_loop(p_target): moved
+    landmarks are pulled through S_loop^-1, moved keyframe poses become
+    T_cw o S_loop (scale folded into the translation), ids are relabeled
+    and the target becomes active."""
+    target = as_index(target_map, m.device).to(_I32)
+    move_kf = m.kf_map_id == m.active_map
+    move_mp = m.mp_map_id == m.active_map
+    mp_pos = torch.where(move_mp[:, None],
+                         sim3.apply(sim3.inverse(S_loop), m.mp_pos), m.mp_pos)
+    T_new = sim3.to_se3_scaled(sim3.compose(sim3.from_se3(m.kf_pose), S_loop))
+    return m._replace(
+        kf_pose=torch.where(move_kf[:, None, None], T_new, m.kf_pose),
+        mp_pos=mp_pos,
+        kf_map_id=torch.where(move_kf, target, m.kf_map_id),
+        mp_map_id=torch.where(move_mp, target, m.mp_map_id),
+        active_map=target)

@@ -1,13 +1,12 @@
 """Monocular SLAM system: host state machine over the device stages
 (counterpart of multi_orbslam3_tpu/pipeline/system.py, ``MonoSlam``).
 
-What this slice covers: the two-view bootstrap, the fused extract+track
-step (synchronous and pipelined loops), the LOST/RECENTLY_LOST ladder with
-the Atlas reset/new-map rules, the keyframe decision and the deferred
-per-keyframe mapping chain. Not yet ported: loop closing
-(``enable_loop_closing=True`` raises) and relocalization, which needs the
-BoW database and PnP (``_relocalize`` finds no candidate, exactly the JAX
-package's path when it has no database).
+The two-view bootstrap, the fused extract+track step (synchronous and
+pipelined loops), the LOST/RECENTLY_LOST ladder with the Atlas
+reset/new-map rules, the keyframe decision, the deferred per-keyframe
+mapping chain, relocalization (BoW query + RANSAC PnP), localization-only
+mode, and loop closing with Atlas merges, run synchronously when a mapping
+result is adopted, on the frame loop's stream.
 
 All map state lives on ``device``. Per frame the host reads one small
 ``packed`` tensor (pose + counts); on a GPU it is copied into pinned memory
@@ -24,11 +23,14 @@ import numpy as np
 import torch
 
 from multi_orbslam3_tpu.config import SystemConfig
+from multi_orbslam3_tpu_torch.bow import database as dbm
+from multi_orbslam3_tpu_torch.bow import vocabulary as vocm
 from multi_orbslam3_tpu_torch.frontend import extractor, matcher
 from multi_orbslam3_tpu_torch.frontend.extractor import FrameFeatures
 from multi_orbslam3_tpu_torch.geometry import camera as cam
 from multi_orbslam3_tpu_torch.map import mapstate as ms
 from multi_orbslam3_tpu_torch.pipeline import initializer, local_mapping, tracking
+from multi_orbslam3_tpu_torch.pipeline.loop_closing import LoopCloser
 
 
 # frames in flight in the pipelined loop: frame i is dispatched while the
@@ -64,14 +66,19 @@ class _HostCopy:
 
 
 class MonoSlam:
-    """Single-agent monocular SLAM with loop closing off (how the
-    reference's collaborative clients run)."""
+    """Single-agent monocular SLAM. With loop closing off (how the
+    reference's collaborative clients run) the system still keeps a BoW
+    database for relocalization.
+
+    Random streams: the initializer's RANSAC draws from a generator
+    re-seeded from the agent id for every attempt, relocalization's PnP
+    from its own generator seeded from the agent id once, and the loop
+    closer from its own; the JAX package splits one key between the first
+    two. Draws differ from JAX's; outcomes agree."""
 
     def __init__(self, config: SystemConfig, agent_id: int = 0,
-                 enable_loop_closing: bool = False, device="cpu"):
-        if enable_loop_closing:
-            raise NotImplementedError(
-                "loop closing is not ported to multi_orbslam3_tpu_torch yet")
+                 enable_loop_closing: bool = True, vocabulary=None,
+                 device="cpu"):
         self.cfg = config
         self.agent = agent_id
         self.device = torch.device(device)
@@ -81,11 +88,29 @@ class MonoSlam:
         self.m = ms.empty_map(config.map.max_keyframes,
                               config.map.max_mappoints,
                               config.orb.n_features, self.device)
+        voc = vocabulary if vocabulary is not None else vocm.default_vocabulary(
+            config.bow.branching, config.bow.levels, device=self.device)
+        self.loop_closer = None
+        self.reloc_voc = self.reloc_db = None
+        if enable_loop_closing:
+            self.loop_closer = LoopCloser(
+                voc, config.map.max_keyframes,
+                consistency_hits=config.loop.consistency_hits,
+                min_score=config.loop.min_bow_score)
+        else:
+            self.reloc_voc = voc
+            self.reloc_db = dbm.KeyframeDatabase.empty(config.map.max_keyframes,
+                                                       device=self.device)
         self.state = TrackState.NOT_INITIALIZED
+        # localization-only: track against a frozen map, never mutate it
+        self.localization_only = False
         self.T_cur = np.eye(4, dtype=np.float32)
         self.T_vel = np.eye(4, dtype=np.float32)
-        # deferred mapping: (future map, kf slot, n_created, n_fused, event)
+        # deferred mapping: (future map, kf slot, n_created, n_fused, event);
+        # defer_mapping False adopts every result synchronously
+        # (deterministic runs for drills and tests)
         self._pending_map = None
+        self.defer_mapping = True
         # pipelined loop: in-flight (feats, res, ts, host copy of packed)
         self._pipe: List[tuple] = []
         self._T_cur_dev = None
@@ -106,6 +131,8 @@ class MonoSlam:
         # re-seeded for every attempt (the JAX package reuses one key)
         self._rng_seed = agent_id + 7
         self._gen = torch.Generator(device=self.device)
+        self._reloc_gen = torch.Generator(device=self.device)
+        self._reloc_gen.manual_seed(agent_id + 7)
         # sequence-relative time (float32 on device cannot hold epoch time)
         self.ts_origin: Optional[float] = None
         self.trajectory: List[Tuple[float, np.ndarray]] = []
@@ -263,8 +290,11 @@ class MonoSlam:
             n_points=local_mapping.mapping_kwargs(self.cfg)["n_points"],
             scale_factor=self.cfg.orb.scale_factor, iters=10).map
         k0, k1 = int(k0), int(k1)
-        self.add_to_reloc_db(self.m, k0)
-        self.add_to_reloc_db(self.m, k1)
+        for k in (k0, k1):
+            if self.loop_closer is not None:
+                self.m = self._loop_close(k)
+            else:
+                self.add_to_reloc_db(self.m, k)
         self.T_cur = self.m.kf_pose[k1].cpu().numpy()
         self.T_vel = np.eye(4, dtype=np.float32)
         self.ref_kf = k1
@@ -281,8 +311,15 @@ class MonoSlam:
         c = self.cfg
         n_in = int(packed[16])
         pose_np = packed[:16].reshape(4, 4).astype(np.float32)
+        # LOST in localization-only mode: relocalize before trusting the
+        # last pose, which is no motion prior, as the reference's
+        # localization mode does (the JAX package tracks from it first and
+        # can lock onto a wrong pose when the replay starts far from it)
+        stale = self.localization_only and self.state == TrackState.LOST
 
-        if n_in < c.tracking.min_matches_localmap:
+        if stale:
+            n_in, self._m_stats = 0, None
+        elif n_in < c.tracking.min_matches_localmap:
             # fallback: descriptor tracking against the reference keyframe
             res2 = tracking.track_reference_kf(
                 self.m, self.ref_kf, feats, self._upload(self.T_cur), self.K,
@@ -298,7 +335,8 @@ class MonoSlam:
 
         if n_in >= c.tracking.min_matches_refkf:
             T_new = pose_np if pose_np is not None else res.pose.cpu().numpy()
-            self.T_vel = (T_new @ np.linalg.inv(self.T_cur)).astype(np.float32)
+            self.T_vel = (np.eye(4, dtype=np.float32) if stale else
+                          (T_new @ np.linalg.inv(self.T_cur)).astype(np.float32))
             self.T_cur = T_new
             self.state = TrackState.OK
             self.lost_count = 0
@@ -324,9 +362,10 @@ class MonoSlam:
             self.state = (TrackState.RECENTLY_LOST
                           if self.lost_count < c.tracking.relost_timeout
                           else TrackState.LOST)
-            if self.state == TrackState.LOST:
+            if self.state == TrackState.LOST and not self.localization_only:
                 # a mature map is kept and a fresh sub-map starts; an
-                # immature one is discarded and rebuilt in place
+                # immature one is discarded and rebuilt in place;
+                # localization-only mode keeps relocalizing instead
                 n_active = int(torch.sum(
                     self.m.kf_valid & (self.m.kf_map_id == self.m.active_map)))
                 if n_active >= 10:
@@ -358,21 +397,77 @@ class MonoSlam:
 
     # ------------------------------------------------------------------
     def add_to_reloc_db(self, m, k: int) -> None:
-        """Register keyframe k for relocalization: the BoW database is not
-        ported yet, so there is nothing to register."""
+        """Register keyframe k's BoW vector in the database this system
+        runs (the loop closer's, or the relocalization one)."""
+        db, voc = self._reloc_database()
+        db, _ = dbm.add_keyframe_bow(db, voc, k, m.kf_desc[k], m.kf_feat_valid[k])
+        if self.loop_closer is not None:
+            self.loop_closer.db = db
+        else:
+            self.reloc_db = db
+
+    def _reloc_database(self):
+        if self.loop_closer is not None:
+            return self.loop_closer.db, self.loop_closer.voc
+        return self.reloc_db, self.reloc_voc
 
     def _relocalize(self, feats: FrameFeatures):
-        """Database-wide recovery needs the BoW database and PnP, which are
-        not ported yet: no candidate, as with no database in the JAX
-        package."""
-        return None
+        """Database-wide recovery: the best BoW candidate keyframe, the
+        pose from scratch by RANSAC PnP, and candidate-pose-seeded
+        tracking as the fallback. A candidate in another sub-map makes it
+        the active one."""
+        db, voc = self._reloc_database()
+        scores = dbm.query(db, voc, feats.desc, feats.valid,
+                           torch.zeros(self.m.max_kf, dtype=torch.bool,
+                                       device=self.device)).cpu().numpy()
+        best = int(np.argmax(scores))
+        if float(scores[best]) < self.cfg.loop.min_bow_score:
+            return None
+        sf = self.cfg.orb.scale_factor
+        need = self.cfg.tracking.min_matches_refkf
+        res = tracking.relocalize_candidate(self.m, best, feats, self.K,
+                                            self._reloc_gen, scale_factor=sf)
+        if int(res.n_inliers) < need:
+            res = tracking.track_reference_kf(self.m, best, feats,
+                                              self.m.kf_pose[best], self.K,
+                                              scale_factor=sf)
+            if int(res.n_inliers) < need:
+                return None
+        self.stats["relocalizations"] = self.stats.get("relocalizations", 0) + 1
+        self.ref_kf = best
+        cand_map = int(self.m.kf_map_id[best])
+        if cand_map != int(self.m.active_map):
+            self.m = ms.switch_map(self.m, cand_map)
+            self.stats["map_switches"] = self.stats.get("map_switches", 0) + 1
+        return res
+
+    # ------------------------------------------------------------------
+    def activate_localization_mode(self, checkpoint_path: Optional[str] = None) -> None:
+        """Switch to localization-only tracking against the map this system
+        holds: rebuild the BoW database over its keyframes and start LOST,
+        so the first frames relocalize. Loading a checkpoint is not ported
+        yet (it needs dataio/checkpoint)."""
+        if checkpoint_path is not None:
+            raise NotImplementedError(
+                "activate_localization_mode(checkpoint_path): map checkpoints "
+                "are not ported to multi_orbslam3_tpu_torch yet")
+        self.localization_only = True
+        n = int(self.m.n_kf)
+        for k in np.nonzero(self.m.kf_valid[:n].cpu().numpy())[0]:
+            self.add_to_reloc_db(self.m, int(k))
+        self.state = TrackState.LOST
+        self.lost_count = 10**6      # relocalize at once
+        self._init_feats = None
+
+    def deactivate_localization_mode(self) -> None:
+        self.localization_only = False
 
     def _need_keyframe(self, n_inliers: int) -> bool:
         """Insert when tracking decays below a fraction of what the last
         keyframe saw, or the maximum interval elapses; never within two
         frames of a recovery."""
         c = self.cfg.tracking
-        if self._ok_streak < 2:
+        if self.localization_only or self._ok_streak < 2:
             return False
         if self.frames_since_kf < max(1, c.kf_min_interval):
             return False
@@ -393,7 +488,8 @@ class MonoSlam:
         # an immature map adopts its mapping results synchronously: a young
         # map whose triangulations lag starves tracking of landmarks
         self._active_map_kfs += 1
-        self._dispatch_mapping(k, defer=self._active_map_kfs > 10)
+        self._dispatch_mapping(k, defer=self.defer_mapping
+                               and self._active_map_kfs > 10)
         self.ref_kf = k
         self.frames_since_kf = 0
         self.stats["kf_inserted"] += 1
@@ -415,8 +511,9 @@ class MonoSlam:
             self._adopt_pending(force=True)
 
     def _adopt_pending(self, force: bool = False) -> None:
-        """Swap in the finished mapping result; without `force`, only once
-        the device has finished it, so the frame loop never stalls."""
+        """Swap in the finished mapping result and run loop closing on its
+        keyframe; without `force`, only once the device has finished it,
+        so the frame loop never stalls on the mapping chain."""
         if self._pending_map is None:
             return
         m_new, k, n_created, n_fused, event = self._pending_map
@@ -426,7 +523,34 @@ class MonoSlam:
         self.m = m_new
         self.stats["mp_created"] += int(n_created)
         self.stats["mp_fused"] = self.stats.get("mp_fused", 0) + int(n_fused)
-        self.add_to_reloc_db(self.m, k)
+        if self.loop_closer is None:
+            self.add_to_reloc_db(self.m, k)
+            return
+        loops = self.loop_closer.loops_closed
+        before = self.m.kf_pose[k]          # maps are never written in place
+        self.m = self._loop_close(k)
+        if self.loop_closer.loops_closed > loops:
+            # a correction or merge moved the map under the live tracker:
+            # re-gauge T_cur through the corrected keyframe
+            # (T_cur' = T_cur T_k^-1 T_k') and resync the device chain
+            T_rel = self.T_cur @ np.linalg.inv(before.cpu().numpy())
+            self.T_cur = (T_rel @ self.m.kf_pose[k].cpu().numpy()).astype(np.float32)
+            self._T_cur_dev = None
+
+    def _yaw_only(self) -> bool:
+        """Hook: 4-DoF (yaw + translation) essential-graph corrections, for
+        gravity-aligned maps once an inertial system knows gravity."""
+        return False
+
+    def _loop_close(self, k: int):
+        """The loop-closing cascade on keyframe k, with full camera context."""
+        c = self.cfg
+        return self.loop_closer.on_keyframe(
+            self.m, k, fix_scale=self._yaw_only(), yaw_only=self._yaw_only(),
+            K=self.K, width=c.camera.width, height=c.camera.height,
+            scale_factor=c.orb.scale_factor, n_levels=c.orb.n_levels,
+            min_proj_matches=c.loop.min_proj_matches,
+            active_map_kfs=self._active_map_kfs)
 
     # ------------------------------------------------------------------
     def keyframe_trajectory(self) -> List[Tuple[float, np.ndarray]]:

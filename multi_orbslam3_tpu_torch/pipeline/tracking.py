@@ -23,7 +23,7 @@ from multi_orbslam3_tpu_torch.geometry import camera as cam
 from multi_orbslam3_tpu_torch.geometry import se3
 from multi_orbslam3_tpu_torch.map import mapstate as ms
 from multi_orbslam3_tpu_torch.map.mapstate import NO_MP, MapState
-from multi_orbslam3_tpu_torch.opt import pose_opt
+from multi_orbslam3_tpu_torch.opt import pnp, pose_opt
 
 
 class TrackResult(NamedTuple):
@@ -178,6 +178,33 @@ def extract_and_track(m: MapState, img: torch.Tensor, T_pred: torch.Tensor,
                       config) -> tuple:
     """Synchronous-loop step: (feats, result, updated map)."""
     return fused_step(config, m, img, T_pred)
+
+
+def relocalize_candidate(m: MapState, cand_kf, feats: FrameFeatures,
+                         K: cam.PinholeK, generator: torch.Generator,
+                         scale_factor: float = 1.2) -> TrackResult:
+    """Relocalization against a BoW candidate keyframe: mutual-match the
+    frame to the candidate's landmark-bearing features (ratio 0.85), solve
+    the pose from scratch with RANSAC PnP, and mark the candidate's
+    landmarks visible. No motion-model or candidate-pose seed."""
+    kf_mp_row = ms.take(m.kf_mp, cand_kf)
+    res = matcher.match_mutual(
+        feats.desc, feats.valid, ms.take(m.kf_desc, cand_kf),
+        ms.take(m.kf_feat_valid, cand_kf) & (kf_mp_row >= 0),
+        max_dist=matcher.TH_LOW, ratio=0.85, angle1=feats.angle,
+        angle2=ms.take(m.kf_angle, cand_kf))
+    feat_mp = torch.where(res.idx >= 0,
+                          kf_mp_row[torch.where(res.idx >= 0, res.idx, 0)], NO_MP)
+    n_matches = torch.sum((feat_mp >= 0).to(torch.int32)).to(torch.int32)
+    sol = pnp.pnp_ransac(
+        K, m.mp_pos[torch.where(feat_mp >= 0, feat_mp, 0).long()], feats.uv_und,
+        (feat_mp >= 0) & feats.valid, level_inv_sigma2(feats.level, scale_factor),
+        generator)
+    visible = torch.zeros(m.max_mp, dtype=torch.bool, device=m.device)
+    visible = ms.scatter_rows(visible, kf_mp_row, kf_mp_row >= 0, True)
+    return TrackResult(pose=sol.pose, feat_mp=torch.where(sol.inliers, feat_mp, NO_MP),
+                       n_inliers=torch.where(sol.ok, sol.n_inliers, 0).to(torch.int32),
+                       n_matches=n_matches, visible=visible)
 
 
 def track_reference_kf(m: MapState, ref_kf, feats: FrameFeatures,
