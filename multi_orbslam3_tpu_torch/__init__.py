@@ -12,9 +12,11 @@ counterpart is found under the same path:
 - ``pipeline``  — tracking, two-view initializer, local mapping, MonoSlam.
 - ``interop``   — numpy in/out of MapState/FrameFeatures (parity tests).
 
-JAX-free helpers (``multi_orbslam3_tpu.config``, ``.dataio.synthetic``,
-``.eval.ate``) are imported from the JAX package, which keeps them free of
-any ``jax`` import; nothing in this package imports ``jax``.
+- ``config``, ``dataio.synthetic``, ``eval.ate`` — the port's own copies of
+                  the JAX package's numpy-only modules.
+
+Nothing in this package imports ``jax`` or the JAX package; the bundled
+vocabulary files under ``bow/`` are copies too.
 
 Precision: every float32 matmul and convolution runs in full float32. The
 optimizers' normal equations diverge under reduced precision, and cuDNN's

@@ -6,10 +6,8 @@ int32 bit patterns of the JAX package's uint32 words (the port's
 descriptor convention). Descriptor -> word is L rounds of gather +
 popcount(xor) + argmin over all N descriptors at once.
 
-The bundled artifacts ``orbvoc_synthetic_k10_L{4,5}.npz`` are read from
-the JAX package's directory with numpy; the path is resolved from the
-top-level package, whose import pulls in no JAX (``multi_orbslam3_tpu.bow``
-would).
+The bundled artifacts ``orbvoc_synthetic_k10_L{4,5}.npz`` beside this
+module are byte-identical copies of the JAX package's, read with numpy.
 """
 
 from __future__ import annotations
@@ -21,7 +19,6 @@ from typing import List
 import numpy as np
 import torch
 
-import multi_orbslam3_tpu
 from multi_orbslam3_tpu_torch.frontend.kernels import popcount32
 
 
@@ -134,8 +131,8 @@ def load_vocabulary(path: str, device="cpu") -> Vocabulary:
 
 
 def bundled_path(branching: int, depth: int) -> str:
-    """Where the JAX package keeps its trained artifact for this shape."""
-    return os.path.join(os.path.dirname(multi_orbslam3_tpu.__file__), "bow",
+    """Where the trained artifact for this shape lies, if one is bundled."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         f"orbvoc_synthetic_k{branching}_L{depth}.npz")
 
 

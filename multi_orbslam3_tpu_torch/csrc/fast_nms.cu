@@ -1,15 +1,33 @@
-// K1: fused FAST-9/16 corner score + 3x3 non-maximum suppression.
+// K1: fused FAST-9/16 corner score + 3x3 non-maximum suppression, for all
+// the levels of an image pyramid in one launch.
 //
 // Replaces the Pallas TPU kernel
 //   multi_orbslam3_tpu/frontend/pallas_kernels.py::fast_score_nms
 //   (kernel body _fast_nms_kernel).
-// Result equals fast.nms3x3(fast.fast_score(img, threshold)) bit for bit:
-// the arithmetic is float subtraction, negation, min and max only.
+// Each level's result equals fast.nms3x3(fast.fast_score(img, threshold))
+// bit for bit: the arithmetic is float subtraction, negation, min and max
+// only, and min/max are exact in any order.
 //
-// What bounds it on an H100: one pyramid level is read once and written
-// once (480x752 f32 = 1.4 MB each way at level 0), which is microseconds
-// of HBM time; at these sizes the launch latency and the per-pixel work
-// (16 differences, 2 x 16 arc minimums of 9, 8 NMS compares) dominate.
+// What bounds it on an H100: each level is read once and written once
+// (the 8 levels of a 752x480 frame hold 1.12 M pixels, 8.9 MB both ways),
+// which is microseconds of HBM time, so what a frame pays is the launches
+// and the per-pixel work. One launch covers every level: its grid is the
+// tiles of all levels, end to end, and a block finds its level by a scan
+// of a table of at most MAX_LEVELS entries. The table (pointers, sizes,
+// first tile of each level) travels by value as a kernel parameter, so
+// the launch is safe on any stream and inside a CUDA graph capture.
+//
+// Per pixel: 16 differences to the centre, then the minimum over each of
+// the 16 contiguous 9-pixel arcs by doubling (pairs, quads, octets, then
+// one more pixel: 64 min for the bright side; the dark side is the same
+// with max, since min(-d) = -max(d)), in place of 16 x 8 min a side. A
+// pixel with fewer than 2 of its 4 compass pixels beyond the threshold on
+// either side cannot hold a 9-arc (every 9-arc covers at least 2 of them)
+// and scores 0 without the arc search. (Queueing the pixels that pass in
+// shared memory, so that the search runs with every lane busy, was tried:
+// it gained 7% on a rendered frame and lost 10% on noise, and was dropped.
+// At these sizes a block's chain of load, barrier, score, barrier, NMS
+// sets the time, not the arithmetic.)
 //
 // Design: each block owns a 32x32 output tile. The input tile plus a 4-px
 // halo (3 px for the Bresenham circle, 1 px for the NMS neighbourhood) is
@@ -18,7 +36,7 @@
 // go to a second shared array, with the 3-px image border and everything
 // outside the image zeroed BEFORE the NMS, so border scores never
 // suppress interior corners. The NMS then reads only shared memory.
-// Nothing is allocated here; the wrapper owns the output tensor.
+// Nothing is allocated here; the wrapper owns the output buffer.
 
 #include <cuda_runtime.h>
 
@@ -30,23 +48,66 @@ constexpr int IN_DIM = TILE + 2 * HALO;  // 40
 constexpr int SC_DIM = TILE + 2;          // 34
 constexpr int BLOCK_X = 32;
 constexpr int BLOCK_Y = 8;
-constexpr int ARC = 9;
+constexpr int MAX_LEVELS = 16;
 
-// (dx, dy) of the radius-3 Bresenham circle in contiguous order
-// (fast._CIRCLE).
-__constant__ int kCircleDx[16] = {0, 1, 2, 3, 3, 3, 2, 1,
-                                  0, -1, -2, -3, -3, -3, -2, -1};
-__constant__ int kCircleDy[16] = {3, 3, 2, 1, 0, -1, -2, -3,
-                                  -3, -3, -2, -1, 0, 1, 2, 3};
+struct LevelTable {
+  const float* in[MAX_LEVELS];
+  float* out[MAX_LEVELS];
+  int h[MAX_LEVELS];
+  int w[MAX_LEVELS];
+  int tiles_x[MAX_LEVELS];
+  int tile0[MAX_LEVELS + 1];   // first tile of each level; [n] = all tiles
+  int n;
+};
 
-__global__ void fast_score_nms_kernel(const float* __restrict__ img,
-                                      float* __restrict__ out, int h, int w,
-                                      float threshold) {
+// max over the 16 arcs of the arc's minimum of d (bright side), and min
+// over the arcs of the arc's maximum (the dark side's value, negated).
+__device__ __forceinline__ void arc_extrema(const float (&d)[16], float& max_of_min,
+                                            float& min_of_max) {
+  float lo2[16], hi2[16], lo4[16], hi4[16], lo8[16], hi8[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    lo2[k] = fminf(d[k], d[(k + 1) & 15]);
+    hi2[k] = fmaxf(d[k], d[(k + 1) & 15]);
+  }
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    lo4[k] = fminf(lo2[k], lo2[(k + 2) & 15]);
+    hi4[k] = fmaxf(hi2[k], hi2[(k + 2) & 15]);
+  }
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    lo8[k] = fminf(lo4[k], lo4[(k + 4) & 15]);
+    hi8[k] = fmaxf(hi4[k], hi4[(k + 4) & 15]);
+  }
+  max_of_min = fminf(lo8[0], d[8]);
+  min_of_max = fmaxf(hi8[0], d[8]);
+#pragma unroll
+  for (int k = 1; k < 16; ++k) {
+    max_of_min = fmaxf(max_of_min, fminf(lo8[k], d[(k + 8) & 15]));
+    min_of_max = fminf(min_of_max, fmaxf(hi8[k], d[(k + 8) & 15]));
+  }
+}
+
+__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
+fast_score_nms_levels_kernel(const LevelTable t, float threshold) {
   __shared__ float s_in[IN_DIM][IN_DIM + 1];
   __shared__ float s_sc[SC_DIM][SC_DIM + 1];
+  // (dx, dy) of the radius-3 Bresenham circle in contiguous order
+  // (fast._CIRCLE); compile-time, so each neighbour is a fixed offset
+  constexpr int kCircleDx[16] = {0, 1, 2, 3, 3, 3, 2, 1,
+                                 0, -1, -2, -3, -3, -3, -2, -1};
+  constexpr int kCircleDy[16] = {3, 3, 2, 1, 0, -1, -2, -3,
+                                 -3, -3, -2, -1, 0, 1, 2, 3};
 
-  const int y0 = blockIdx.y * TILE;
-  const int x0 = blockIdx.x * TILE;
+  int lv = 0;
+  while (lv + 1 < t.n && static_cast<int>(blockIdx.x) >= t.tile0[lv + 1]) ++lv;
+  const int tile = blockIdx.x - t.tile0[lv];
+  const int h = t.h[lv], w = t.w[lv];
+  const float* __restrict__ img = t.in[lv];
+  float* __restrict__ out = t.out[lv];
+  const int y0 = (tile / t.tiles_x[lv]) * TILE;
+  const int x0 = (tile % t.tiles_x[lv]) * TILE;
   const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
   const int nthreads = BLOCK_X * BLOCK_Y;
 
@@ -76,21 +137,18 @@ __global__ void fast_score_nms_kernel(const float* __restrict__ img,
 #pragma unroll
       for (int k = 0; k < 16; ++k)
         d[k] = s_in[cy + kCircleDy[k]][cx + kCircleDx[k]] - center;
-      float v_bright = 0.0f, v_dark = 0.0f;
+      int n_bright = 0, n_dark = 0;
 #pragma unroll
-      for (int s = 0; s < 16; ++s) {
-        float mb = d[s];
-        float md = -d[s];
-#pragma unroll
-        for (int k = 1; k < ARC; ++k) {
-          mb = fminf(mb, d[(s + k) & 15]);
-          md = fminf(md, -d[(s + k) & 15]);
-        }
-        v_bright = (s == 0) ? mb : fmaxf(v_bright, mb);
-        v_dark = (s == 0) ? md : fmaxf(v_dark, md);
+      for (int k = 0; k < 16; k += 4) {
+        n_bright += (d[k] > threshold) ? 1 : 0;
+        n_dark += (-d[k] > threshold) ? 1 : 0;
       }
-      const float sc = fmaxf(v_bright, v_dark);
-      score = (sc > threshold) ? sc : 0.0f;
+      if (n_bright >= 2 || n_dark >= 2) {
+        float v_bright, min_of_max;
+        arc_extrema(d, v_bright, min_of_max);
+        const float sc = fmaxf(v_bright, -min_of_max);
+        score = (sc > threshold) ? sc : 0.0f;
+      }
     }
     s_sc[r][c] = score;
   }
@@ -115,11 +173,29 @@ __global__ void fast_score_nms_kernel(const float* __restrict__ img,
 
 }  // namespace
 
-extern "C" int mo3_fast_score_nms(const float* img, float* out, int h, int w,
-                                  float threshold, void* stream) {
+// in/out: n device pointers each, (h[i], w[i]) float32 row-major; n <= 16.
+// Returns the cudaError of the launch, or cudaErrorInvalidValue for a
+// level count or size the table cannot hold.
+extern "C" int mo3_fast_score_nms_levels(const void* const* in, void* const* out,
+                                         const int* h, const int* w, int n,
+                                         float threshold, void* stream) {
+  if (n < 1 || n > MAX_LEVELS) return static_cast<int>(cudaErrorInvalidValue);
+  LevelTable t = {};
+  t.n = n;
+  int tiles = 0;
+  for (int i = 0; i < n; ++i) {
+    if (h[i] < 1 || w[i] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    t.in[i] = static_cast<const float*>(in[i]);
+    t.out[i] = static_cast<float*>(out[i]);
+    t.h[i] = h[i];
+    t.w[i] = w[i];
+    t.tiles_x[i] = (w[i] + TILE - 1) / TILE;
+    t.tile0[i] = tiles;
+    tiles += t.tiles_x[i] * ((h[i] + TILE - 1) / TILE);
+  }
+  t.tile0[n] = tiles;
   const dim3 block(BLOCK_X, BLOCK_Y);
-  const dim3 grid((w + TILE - 1) / TILE, (h + TILE - 1) / TILE);
-  fast_score_nms_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      img, out, h, w, threshold);
+  fast_score_nms_levels_kernel<<<tiles, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      t, threshold);
   return static_cast<int>(cudaGetLastError());
 }

@@ -105,13 +105,17 @@ def extract_features(img: torch.Tensor, config) -> FrameFeatures:
     counts = level_feature_counts(o.n_features, o.n_levels, o.scale_factor)
     levels = pyramid.build_pyramid(img, o.n_levels, o.scale_factor)
 
+    # K1 once for the whole pyramid
+    scores = kernels.fast_score_nms_levels([im.contiguous() for im in levels],
+                                           fast_lo)
+
     uvs, resps, lvls, angs, descs, valids = [], [], [], [], [], []
     strong_bonus = 1e6
     for lv, im in enumerate(levels):
         n_lv = counts[lv]
         if n_lv == 0:
             continue
-        s = kernels.fast_score_nms(im, fast_lo)
+        s = scores[lv]
         h, w = im.shape
         ys = torch.arange(h, device=im.device)[:, None]
         xs = torch.arange(w, device=im.device)[None, :]

@@ -1,21 +1,30 @@
 """Hand-written Hopper kernels of the frontend and their plain versions
 (counterpart of multi_orbslam3_tpu/frontend/pallas_kernels.py).
 
-- K1 ``fast_score_nms``: FAST-9/16 score + 3x3 NMS of one pyramid level
-  (``csrc/fast_nms.cu``).
+- K1 ``fast_score_nms_levels``: FAST-9/16 score + 3x3 NMS of every level
+  of a pyramid in one launch (``csrc/fast_nms.cu``); ``fast_score_nms`` is
+  the same call with one level.
 - K2 ``hamming_matrix``: (N, 8) x (M, 8) packed descriptor words ->
-  (N, M) int32 Hamming distances (``csrc/hamming.cu``).
+  (N, M) int32 Hamming distances (``csrc/hamming.cu``), and its two fused
+  forms, which mask and reduce in the kernel and never write N x M:
+  ``hamming_best_two_valid`` (row and column validity; per row the first
+  best column, best and second-best distance, per column the first best
+  row) and ``hamming_best_two_projection`` (validity, a per-row radius
+  around a projected position and a pyramid-level window; the row
+  results). ``hamming_best_two_valid`` has two inner products: ``__popc``
+  (``csrc/hamming.cu``) and the 1-bit tensor-core MMA
+  (``csrc/hamming_mma.cu``).
 
 Dispatch is by the tensor's device only: a CPU tensor takes the plain
 PyTorch version, a CUDA tensor launches the kernel or raises. There is no
 fallback from the GPU and no switch to turn a kernel off.
 
-The kernels are compiled with nvcc for sm_90a into one shared library with
-a plain C interface, at first use, into ``_build/`` next to this package
-(keyed by a hash of the sources), and bound with ctypes. Each launch runs
-on PyTorch's current stream and returns ``cudaGetLastError()``, which the
-wrapper turns into an exception. Each wrapper counts its launches in a
-plain int attribute ``launches``.
+Each source is compiled by its own nvcc process for sm_90a, all started
+together, into a shared library with a plain C interface, at first use,
+into ``_build/`` next to this package (keyed by a hash of the sources),
+and bound with ctypes. Each launch runs on PyTorch's current stream and
+returns ``cudaGetLastError()``, which the wrapper turns into an exception.
+Each wrapper counts its launches (``launch_counts()``).
 """
 
 from __future__ import annotations
@@ -28,7 +37,9 @@ import subprocess
 import tempfile
 import threading
 import time
+import types
 from pathlib import Path
+from typing import List, Sequence, Tuple, Union
 
 import torch
 
@@ -37,12 +48,18 @@ from multi_orbslam3_tpu_torch.frontend import fast
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fast_nms.cu", "hamming.cu")
+SOURCES = ("fast_nms.cu", "hamming.cu", "hamming_mma.cu")
+HEADERS = ("match_core.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+BIG = 10_000          # distance of a masked pair (csrc/match_core.cuh)
+MAX_LEVELS = 16       # capacity of K1's level table (csrc/fast_nms.cu)
 
 _lib_handle = None
 _lib_lock = threading.Lock()
+_LAUNCHES = {"fast_score_nms_levels": 0, "hamming_matrix": 0,
+             "hamming_best_two_valid_popc": 0, "hamming_best_two_valid_mma": 0,
+             "hamming_best_two_projection": 0}
 
 
 def _nvcc() -> str:
@@ -56,7 +73,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -64,55 +81,96 @@ def _source_hash() -> str:
 
 
 def build() -> dict:
-    """Compile csrc/*.cu into _build/libmo3_kernels_<hash>.so unless that
-    file exists. Returns {"path", "cached", "seconds", "log"}, where "log"
-    holds nvcc's output (ptxas register and shared-memory use)."""
+    """Compile each of csrc/*.cu into _build/libmo3_<stem>_<hash>.so unless
+    that file exists, one nvcc process a source, all running at once.
+    Returns {"paths": {source: path}, "cached", "seconds", "log"}, where
+    "log" holds nvcc's output (ptxas register and shared-memory use)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"libmo3_kernels_{_source_hash()}.so"
-    if so.exists():
-        return {"path": so, "cached": True, "seconds": 0.0, "log": ""}
+    tag = _source_hash()
+    paths = {name: BUILD_DIR / f"libmo3_{Path(name).stem}_{tag}.so"
+             for name in SOURCES}
+    todo = [name for name in SOURCES if not paths[name].exists()]
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC / name) for name in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
-    os.replace(tmp, so)
-    return {"path": so, "cached": False, "seconds": time.perf_counter() - t0,
-            "log": proc.stdout + proc.stderr}
+    nvcc = _nvcc() if todo else None
+    procs = []
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        procs.append((name, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for name, tmp, proc in procs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{name}:\n{out}")
+        else:
+            os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return {"paths": paths, "cached": not todo,
+            "seconds": time.perf_counter() - t0, "log": "".join(log)}
 
 
 def _lib():
     global _lib_handle
     with _lib_lock:
         if _lib_handle is None:
-            lib = ctypes.CDLL(str(build()["path"]))
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.mo3_fast_score_nms.argtypes = [vp, vp, ci, ci, ctypes.c_float, vp]
-            lib.mo3_fast_score_nms.restype = ci
-            lib.mo3_hamming_matrix.argtypes = [vp, vp, vp, ci, ci, vp]
-            lib.mo3_hamming_matrix.restype = ci
-            _lib_handle = lib
+            paths = build()["paths"]
+            fast_so, ham_so, mma_so = (ctypes.CDLL(str(paths[n])) for n in SOURCES)
+            vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            fns = types.SimpleNamespace(
+                fast_score_nms_levels=fast_so.mo3_fast_score_nms_levels,
+                hamming_matrix=ham_so.mo3_hamming_matrix,
+                hamming_best_two_valid_popc=ham_so.mo3_hamming_best_two_valid,
+                hamming_best_two_valid_mma=mma_so.mo3_hamming_best_two_valid_mma,
+                hamming_best_two_projection=ham_so.mo3_hamming_best_two_projection)
+            fns.fast_score_nms_levels.argtypes = [vp, vp, vp, vp, ci, cf, vp]
+            fns.hamming_matrix.argtypes = [vp, vp, vp, ci, ci, vp]
+            valid_args = [vp, vp, ci, vp, vp, ci, vp, vp, vp, vp, vp]
+            fns.hamming_best_two_valid_popc.argtypes = valid_args
+            fns.hamming_best_two_valid_mma.argtypes = valid_args
+            fns.hamming_best_two_projection.argtypes = [
+                vp, vp, vp, vp, cf, vp, ci, vp, vp, vp, vp, ci, ci, vp, vp, vp, vp]
+            for fn in vars(fns).values():
+                fn.restype = ci
+            _lib_handle = fns
     return _lib_handle
 
 
-def _check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int):
+def _check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple):
+    """Raise unless t is a contiguous CUDA tensor of this dtype on the
+    current device whose shape matches (None stands for any size)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CPU or CUDA tensor, got {t.device}")
-    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous {ndim}-D {dtype} "
-                         f"tensor, got {t.dtype} {tuple(t.shape)}")
+    if (t.dtype != dtype or t.dim() != len(shape) or not t.is_contiguous()
+            or any(want is not None and got != want
+                   for got, want in zip(t.shape, shape))):
+        raise ValueError(f"{name}: expected a contiguous {dtype} tensor of shape "
+                         f"{shape}, got {t.dtype} {tuple(t.shape)}")
     if t.device.index != torch.cuda.current_device():
         raise ValueError(f"{name}: tensor on {t.device} but the current "
                          f"device is cuda:{torch.cuda.current_device()}")
 
 
-def _raise_on(err: int, name: str):
+def _launch(name: str, *args) -> None:
+    """Launch kernel `name` on the current stream and count it."""
+    err = getattr(_lib(), name)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+    _LAUNCHES[name] += 1
+
+
+def _all_cpu(*tensors: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """The kernels read descriptor rows as 16-byte words and feature
+    positions as 8-byte pairs."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 # ----------------------------------------------------------------------
@@ -120,33 +178,55 @@ def _raise_on(err: int, name: str):
 # ----------------------------------------------------------------------
 
 def fast_score_nms_ref(img: torch.Tensor, threshold: float) -> torch.Tensor:
-    """Plain version of K1: fast.nms3x3(fast.fast_score(img, threshold))."""
+    """Plain version of K1 for one level:
+    fast.nms3x3(fast.fast_score(img, threshold))."""
     return fast.nms3x3(fast.fast_score(img, threshold))
 
 
+def fast_score_nms_levels_ref(levels: Sequence[torch.Tensor],
+                              threshold: float) -> List[torch.Tensor]:
+    """Plain version of K1: the one-level plain version, level by level."""
+    return [fast_score_nms_ref(im, threshold) for im in levels]
+
+
+def fast_score_nms_levels(levels: Sequence[torch.Tensor],
+                          threshold: float) -> List[torch.Tensor]:
+    """(H_i, W_i) float32 levels -> their (H_i, W_i) float32 NMS'd FAST
+    scores (0 on the 3-px border). CPU: plain version; CUDA: kernel K1,
+    one launch for all levels; the results are views of one buffer."""
+    levels = list(levels)
+    if _all_cpu(*levels):
+        return fast_score_nms_levels_ref(levels, threshold)
+    for im in levels:
+        _check_cuda("fast_score_nms_levels", im, torch.float32, (None, None))
+    if len(levels) > MAX_LEVELS:
+        raise ValueError(f"fast_score_nms_levels: {len(levels)} levels, the "
+                         f"kernel's table holds {MAX_LEVELS}")
+    flat = torch.empty(sum(im.numel() for im in levels), dtype=torch.float32,
+                       device=levels[0].device)
+    outs, offset = [], 0
+    for im in levels:
+        outs.append(flat[offset:offset + im.numel()].view(im.shape))
+        offset += im.numel()
+    work = [(im, out) for im, out in zip(levels, outs) if im.numel() > 0]
+    if work:
+        n = len(work)
+        _launch("fast_score_nms_levels",
+                (ctypes.c_void_p * n)(*(im.data_ptr() for im, _ in work)),
+                (ctypes.c_void_p * n)(*(out.data_ptr() for _, out in work)),
+                (ctypes.c_int * n)(*(im.shape[0] for im, _ in work)),
+                (ctypes.c_int * n)(*(im.shape[1] for im, _ in work)),
+                n, float(threshold))
+    return outs
+
+
 def fast_score_nms(img: torch.Tensor, threshold: float) -> torch.Tensor:
-    """(H, W) float32 level -> (H, W) float32 NMS'd FAST score (0 on the
-    3-px border). CPU: plain version; CUDA: kernel K1."""
-    if img.device.type == "cpu":
-        return fast_score_nms_ref(img, threshold)
-    _check_cuda("fast_score_nms", img, torch.float32, 2)
-    h, w = img.shape
-    out = torch.empty_like(img)
-    if h == 0 or w == 0:
-        return out
-    err = _lib().mo3_fast_score_nms(
-        img.data_ptr(), out.data_ptr(), h, w, float(threshold),
-        torch.cuda.current_stream(img.device).cuda_stream)
-    _raise_on(err, "fast_score_nms")
-    fast_score_nms.launches += 1
-    return out
-
-
-fast_score_nms.launches = 0
+    """One (H, W) float32 level -> its NMS'd FAST score: K1 with one level."""
+    return fast_score_nms_levels([img], threshold)[0]
 
 
 # ----------------------------------------------------------------------
-# K2: packed Hamming distance matrix
+# K2: packed Hamming distance, as a matrix and as fused matches
 # ----------------------------------------------------------------------
 
 def popcount32(v: torch.Tensor) -> torch.Tensor:
@@ -172,32 +252,180 @@ def hamming_matrix_ref(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
 def hamming_matrix(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     """(N, 8) x (M, 8) int32 descriptor words -> (N, M) int32 Hamming
     distances. CPU: plain version; CUDA: kernel K2."""
-    if d1.device.type == "cpu" and d2.device.type == "cpu":
+    if _all_cpu(d1, d2):
         return hamming_matrix_ref(d1, d2)
-    _check_cuda("hamming_matrix", d1, torch.int32, 2)
-    _check_cuda("hamming_matrix", d2, torch.int32, 2)
-    if d1.shape[1] != 8 or d2.shape[1] != 8:
-        raise ValueError("hamming_matrix: expected (N, 8) and (M, 8) words")
+    _check_cuda("hamming_matrix", d1, torch.int32, (None, 8))
+    _check_cuda("hamming_matrix", d2, torch.int32, (None, 8))
     n, m = d1.shape[0], d2.shape[0]
     out = torch.empty((n, m), dtype=torch.int32, device=d1.device)
     if n == 0 or m == 0:
         return out
-    err = _lib().mo3_hamming_matrix(
-        d1.data_ptr(), d2.data_ptr(), out.data_ptr(), n, m,
-        torch.cuda.current_stream(d1.device).cuda_stream)
-    _raise_on(err, "hamming_matrix")
-    hamming_matrix.launches += 1
+    _launch("hamming_matrix", d1.data_ptr(), d2.data_ptr(), out.data_ptr(), n, m)
     return out
 
 
-hamming_matrix.launches = 0
+def best_two(dist: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-row best index (first on ties), best and second-best distance of
+    a masked (N, M) distance matrix."""
+    best_idx = torch.argmin(dist, dim=1)
+    best = torch.gather(dist, 1, best_idx[:, None])[:, 0]
+    masked = dist.scatter(1, best_idx[:, None], BIG)
+    return best_idx, best, torch.amin(masked, dim=1)
+
+
+def hamming_best_two_valid_ref(d1: torch.Tensor, valid1: torch.Tensor,
+                               d2: torch.Tensor, valid2: torch.Tensor,
+                               row_block: Union[int, None] = None):
+    """Plain version of the validity-masked fused match: the matrix, the
+    mask, best_two and the column argmin, one after the other. With
+    `row_block` the rows go through in blocks of that many, so that only
+    row_block x M is live at a time; the result is the same."""
+    n = d1.shape[0]
+    step = n if row_block is None else row_block
+    rows, col_min, col_arg = [], None, None
+    for r0 in range(0, n, step):
+        dist = torch.where(valid1[r0:r0 + step, None] & valid2[None, :],
+                           hamming_matrix_ref(d1[r0:r0 + step], d2), BIG)
+        rows.append(best_two(dist))
+        cmin = torch.amin(dist, dim=0)
+        carg = torch.argmin(dist, dim=0) + r0     # first row on ties
+        if col_min is None:
+            col_min, col_arg = cmin, carg
+        else:                                     # earlier block wins ties
+            col_arg = torch.where(cmin < col_min, carg, col_arg)
+            col_min = torch.minimum(cmin, col_min)
+    idx, best, second = (torch.cat(parts) for parts in zip(*rows))
+    return idx, best, second, col_arg
+
+
+def hamming_best_two_valid(d1: torch.Tensor, valid1: torch.Tensor,
+                           d2: torch.Tensor, valid2: torch.Tensor,
+                           inner: Union[str, None] = None):
+    """Hamming match of (N, 8) against (M, 8) int32 descriptor words under
+    the mask valid1[:, None] & valid2[None, :], a masked pair counting as
+    BIG. Returns, per row, (idx int64: the first column with the minimum,
+    best int32, second int32: the minimum with position idx taken out), and
+    per column argmin_row int64: the first row with the minimum. A row or
+    column with nothing unmasked gives idx 0 and BIG.
+
+    CPU: plain version; CUDA: the fused kernel, which writes no N x M.
+    `inner` names its inner product. "popc" skips every invalid row and
+    column and is the faster on the masks the callers pass (sparse at map
+    x map) and at 1,024 x 1,024; "mma" (the 1-bit tensor-core product)
+    computes whole 16 x 8 tiles and is the faster only where most of a
+    large problem is valid. The masks live on the device, so the choice
+    cannot follow them without a read-back: left out, `inner` is "popc"."""
+    n, m = d1.shape[0], d2.shape[0]
+    if n == 0 or m == 0:
+        dev = d1.device
+        return (torch.zeros(n, dtype=torch.int64, device=dev),
+                torch.full((n,), BIG, dtype=torch.int32, device=dev),
+                torch.full((n,), BIG, dtype=torch.int32, device=dev),
+                torch.zeros(m, dtype=torch.int64, device=dev))
+    if _all_cpu(d1, valid1, d2, valid2):
+        return hamming_best_two_valid_ref(d1, valid1, d2, valid2)
+    name = "hamming_best_two_valid"
+    _check_cuda(name, d1, torch.int32, (n, 8))
+    _check_cuda(name, valid1, torch.bool, (n,))
+    _check_cuda(name, d2, torch.int32, (m, 8))
+    _check_cuda(name, valid2, torch.bool, (m,))
+    inner = inner or "popc"
+    if inner not in ("popc", "mma"):
+        raise ValueError(f'{name}: inner is "popc" or "mma", got {inner!r}')
+    d1, d2 = _aligned16(d1), _aligned16(d2)
+    dev = d1.device
+    idx = torch.empty(n, dtype=torch.int64, device=dev)
+    best = torch.empty(n, dtype=torch.int32, device=dev)
+    second = torch.empty(n, dtype=torch.int32, device=dev)
+    # per-column (distance << 32 | row) keys for the kernel's atomicMin
+    col_key = torch.full((m,), BIG << 32, dtype=torch.int64, device=dev)
+    _launch(f"{name}_{inner}", d1.data_ptr(), valid1.data_ptr(), n,
+            d2.data_ptr(), valid2.data_ptr(), m, idx.data_ptr(),
+            best.data_ptr(), second.data_ptr(), col_key.data_ptr())
+    return idx, best, second, col_key & 0xFFFFFFFF
+
+
+def _row_radius(radius, n: int, device) -> torch.Tensor:
+    if isinstance(radius, torch.Tensor):
+        return radius.expand(n)
+    return torch.full((n,), float(radius), device=device)
+
+
+def hamming_best_two_projection_ref(mp_desc, proj_uv, proj_valid, radius,
+                                    pred_level, feat_desc, feat_uv, feat_valid,
+                                    feat_level, level_slack: int):
+    """Plain version of the projection-masked fused match: the (N, M)
+    radius, level and validity mask, the matrix, then best_two."""
+    d2 = torch.sum((proj_uv[:, None, :] - feat_uv[None, :, :]) ** 2, dim=-1)
+    r = _row_radius(radius, proj_uv.shape[0], proj_uv.device)
+    in_radius = d2 <= (r[:, None] ** 2)
+    lv_ok = torch.abs(feat_level[None, :] - pred_level[:, None]) <= level_slack
+    mask = in_radius & lv_ok & proj_valid[:, None] & feat_valid[None, :]
+    return best_two(torch.where(mask, hamming_matrix_ref(mp_desc, feat_desc), BIG))
+
+
+def hamming_best_two_projection(mp_desc: torch.Tensor, proj_uv: torch.Tensor,
+                                proj_valid: torch.Tensor, radius,
+                                pred_level: torch.Tensor, feat_desc: torch.Tensor,
+                                feat_uv: torch.Tensor, feat_valid: torch.Tensor,
+                                feat_level: torch.Tensor, level_slack: int):
+    """Hamming match of N projected map points (rows) against M features
+    (columns) under the mask: both valid, the feature within `radius` px
+    of the projection ((N,) float32 tensor, 0-d tensor or float; float32
+    arithmetic, (dx*dx) + (dy*dy) <= r*r) and |feat_level - pred_level| <=
+    level_slack. Returns per row (idx int64, best int32, second int32) as
+    hamming_best_two_valid does.
+
+    CPU: plain version; CUDA: the fused kernel, which computes the mask
+    from the per-row and per-column vectors and writes no N x M."""
+    n, m = mp_desc.shape[0], feat_desc.shape[0]
+    if n == 0 or m == 0:
+        dev = mp_desc.device
+        return (torch.zeros(n, dtype=torch.int64, device=dev),
+                torch.full((n,), BIG, dtype=torch.int32, device=dev),
+                torch.full((n,), BIG, dtype=torch.int32, device=dev))
+    tensors = [mp_desc, proj_uv, proj_valid, pred_level, feat_desc, feat_uv,
+               feat_valid, feat_level]
+    if isinstance(radius, torch.Tensor):
+        tensors.append(radius)
+    if _all_cpu(*tensors):
+        return hamming_best_two_projection_ref(
+            mp_desc, proj_uv, proj_valid, radius, pred_level, feat_desc,
+            feat_uv, feat_valid, feat_level, level_slack)
+    name = "hamming_best_two_projection"
+    if isinstance(radius, torch.Tensor):
+        radius = radius.expand(n).contiguous()
+        _check_cuda(name, radius, torch.float32, (n,))
+        radius_ptr, radius_scalar = radius.data_ptr(), 0.0
+    else:
+        radius_ptr, radius_scalar = None, float(radius)
+    _check_cuda(name, mp_desc, torch.int32, (n, 8))
+    _check_cuda(name, proj_uv, torch.float32, (n, 2))
+    _check_cuda(name, proj_valid, torch.bool, (n,))
+    _check_cuda(name, pred_level, torch.int32, (n,))
+    _check_cuda(name, feat_desc, torch.int32, (m, 8))
+    _check_cuda(name, feat_uv, torch.float32, (m, 2))
+    _check_cuda(name, feat_valid, torch.bool, (m,))
+    _check_cuda(name, feat_level, torch.int32, (m,))
+    mp_desc, feat_desc = _aligned16(mp_desc), _aligned16(feat_desc)
+    feat_uv = _aligned16(feat_uv)
+    dev = mp_desc.device
+    idx = torch.empty(n, dtype=torch.int64, device=dev)
+    best = torch.empty(n, dtype=torch.int32, device=dev)
+    second = torch.empty(n, dtype=torch.int32, device=dev)
+    _launch(name, mp_desc.data_ptr(), proj_uv.data_ptr(), proj_valid.data_ptr(),
+            radius_ptr, radius_scalar, pred_level.data_ptr(), n,
+            feat_desc.data_ptr(), feat_uv.data_ptr(), feat_valid.data_ptr(),
+            feat_level.data_ptr(), m, int(level_slack), idx.data_ptr(),
+            best.data_ptr(), second.data_ptr())
+    return idx, best, second
 
 
 def reset_launch_counts() -> None:
-    fast_score_nms.launches = 0
-    hamming_matrix.launches = 0
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
 
 
 def launch_counts() -> dict:
-    return {"fast_score_nms": fast_score_nms.launches,
-            "hamming_matrix": hamming_matrix.launches}
+    """Launches of each kernel since the last reset."""
+    return dict(_LAUNCHES)

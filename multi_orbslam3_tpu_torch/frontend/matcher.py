@@ -1,6 +1,10 @@
 """Batched ORB descriptor matching (counterpart of
 multi_orbslam3_tpu/frontend/matcher.py): every search is a dense masked
-Hamming-distance problem; the distance matrix comes from kernel K2.
+Hamming-distance problem. The two matchers go through kernel K2's fused
+forms (``kernels.hamming_best_two_valid`` / ``_projection``), which mask
+and reduce inside the kernel: on a GPU no N x M tensor is made here. The
+matrix itself (``hamming_matrix``) and ``best_two`` are the pieces of the
+plain versions.
 
 Thresholds mirror the reference: TH_LOW = 50, TH_HIGH = 100, Lowe ratio,
 30-bin rotation-consistency histogram keeping the top 3 bins.
@@ -9,7 +13,7 @@ Thresholds mirror the reference: TH_LOW = 50, TH_HIGH = 100, Lowe ratio,
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple
 
 import torch
 
@@ -19,21 +23,14 @@ from multi_orbslam3_tpu_torch.frontend.extractor import topk_stable
 TH_LOW = 50
 TH_HIGH = 100
 HISTO_BINS = 30
-BIG = 10_000
+BIG = kernels.BIG
+best_two = kernels.best_two
 
 
 def hamming_matrix(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     """(N, 8) x (M, 8) int32 words -> (N, M) int32 Hamming distances
     (kernel K2 on the GPU, its plain version on the CPU)."""
     return kernels.hamming_matrix(d1.contiguous(), d2.contiguous())
-
-
-def best_two(dist: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-row best index (first on ties), best and second-best distance."""
-    best_idx = torch.argmin(dist, dim=1)
-    best = torch.gather(dist, 1, best_idx[:, None])[:, 0]
-    masked = dist.scatter(1, best_idx[:, None], BIG)
-    return best_idx, best, torch.amin(masked, dim=1)
 
 
 def rotation_consistency(angle_diff: torch.Tensor, valid: torch.Tensor,
@@ -69,11 +66,10 @@ def match_mutual(desc1: torch.Tensor, valid1: torch.Tensor,
                  angle2: torch.Tensor | None = None) -> MatchResult:
     """Mutual nearest neighbours with the Lowe ratio and optional rotation
     consistency (the reference's SearchForInitialization pattern)."""
-    dist = hamming_matrix(desc1, desc2)
-    dist = torch.where(valid1[:, None] & valid2[None, :], dist, BIG)
-    idx12, best12, second12 = best_two(dist)
-    idx21 = torch.argmin(dist, dim=0)
-    rows = torch.arange(dist.shape[0], device=dist.device)
+    idx12, best12, second12, idx21 = kernels.hamming_best_two_valid(
+        desc1.contiguous(), valid1.contiguous(), desc2.contiguous(),
+        valid2.contiguous())
+    rows = torch.arange(idx12.shape[0], device=idx12.device)
     mutual = idx21[idx12] == rows
     ok = (best12 <= max_dist) & (best12 <= ratio * second12) & mutual
     if angle1 is not None and angle2 is not None:
@@ -91,16 +87,11 @@ def match_by_projection(proj_uv: torch.Tensor, proj_valid: torch.Tensor,
     """Guided search: for each projected map point (rows), the best feature
     (cols) within `radius` px and a predicted-octave window (reference
     SearchByProjection). radius: (M,) tensor or float."""
-    d2 = torch.sum((proj_uv[:, None, :] - feat_uv[None, :, :]) ** 2, dim=-1)
-    if isinstance(radius, torch.Tensor):
-        r = radius.expand(proj_uv.shape[0])
-    else:
-        r = torch.full((proj_uv.shape[0],), float(radius), device=proj_uv.device)
-    in_radius = d2 <= (r[:, None] ** 2)
-    lv_ok = torch.abs(feat_level[None, :] - pred_level[:, None]) <= level_slack
-    mask = in_radius & lv_ok & proj_valid[:, None] & feat_valid[None, :]
-    dist = torch.where(mask, hamming_matrix(mp_desc, feat_desc), BIG)
-    idx, best, second = best_two(dist)
+    idx, best, second = kernels.hamming_best_two_projection(
+        mp_desc.contiguous(), proj_uv.contiguous(), proj_valid.contiguous(),
+        radius, pred_level.to(torch.int32).contiguous(), feat_desc.contiguous(),
+        feat_uv.contiguous(), feat_valid.contiguous(),
+        feat_level.to(torch.int32).contiguous(), level_slack)
     ok = (best <= max_dist) & ((best <= ratio * second) | (second >= BIG))
     return MatchResult(torch.where(ok, idx, -1), torch.where(ok, best, BIG))
 

@@ -22,9 +22,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from multi_orbslam3_tpu.config import SystemConfig
 from multi_orbslam3_tpu_torch.bow import database as dbm
 from multi_orbslam3_tpu_torch.bow import vocabulary as vocm
+from multi_orbslam3_tpu_torch.config import SystemConfig
 from multi_orbslam3_tpu_torch.frontend import extractor, matcher
 from multi_orbslam3_tpu_torch.frontend.extractor import FrameFeatures
 from multi_orbslam3_tpu_torch.geometry import camera as cam
@@ -74,13 +74,23 @@ class MonoSlam:
     re-seeded from the agent id for every attempt, relocalization's PnP
     from its own generator seeded from the agent id once, and the loop
     closer from its own; the JAX package splits one key between the first
-    two. Draws differ from JAX's; outcomes agree."""
+    two. Draws differ from JAX's; outcomes agree.
+
+    All state lives on ``device``. Left out, it is the CUDA device, and the
+    constructor raises where there is none: the system runs on the CPU only
+    when the caller asks for it with ``device="cpu"``."""
 
     def __init__(self, config: SystemConfig, agent_id: int = 0,
                  enable_loop_closing: bool = True, vocabulary=None,
-                 device="cpu"):
+                 device=None):
         self.cfg = config
         self.agent = agent_id
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "MonoSlam: no CUDA device, and the system does not fall "
+                    'back to the CPU by itself; pass device="cpu" to run there')
+            device = "cuda"
         self.device = torch.device(device)
         self.K = cam.intrinsics_from_config(config.camera, self.device)
         c = config.camera

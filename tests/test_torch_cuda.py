@@ -12,9 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from multi_orbslam3_tpu import config as cfg
-from multi_orbslam3_tpu.dataio import synthetic
-from multi_orbslam3_tpu.eval import ate
+from multi_orbslam3_tpu_torch import config as cfg
+from multi_orbslam3_tpu_torch.dataio import synthetic
+from multi_orbslam3_tpu_torch.eval import ate
 from multi_orbslam3_tpu_torch.frontend import kernels
 from multi_orbslam3_tpu_torch.frontend.extractor import FrameFeatures
 from multi_orbslam3_tpu_torch.geometry import se3, sim3
@@ -33,18 +33,71 @@ def dev():
     return torch.device("cuda")
 
 
+def _noise(shape, seed, dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    img = torch.round(torch.rand(shape, generator=g, device=dev) * 255.0)
+    img[2:12, 2:40] = 90.0          # a flat plateau
+    return img
+
+
 @pytest.mark.parametrize("shape", [(480, 752), (231, 363), (134, 210), (17, 33)])
 def test_fast_score_nms_kernel_equals_plain(dev, shape):
     """Exact equality, on uint8-valued noise with a flat plateau."""
-    g = torch.Generator(device=dev)
-    g.manual_seed(shape[0])
-    img = torch.round(torch.rand(shape, generator=g, device=dev) * 255.0)
-    img[2:12, 2:40] = 90.0
-    before = kernels.fast_score_nms.launches
+    img = _noise(shape, shape[0], dev)
+    before = kernels.launch_counts()["fast_score_nms_levels"]
     got = kernels.fast_score_nms(img, 7.0)
     torch.cuda.synchronize()
-    assert kernels.fast_score_nms.launches == before + 1
+    assert kernels.launch_counts()["fast_score_nms_levels"] == before + 1
     assert torch.equal(got, kernels.fast_score_nms_ref(img, 7.0))
+
+
+PYRAMID_SHAPES = [(480, 752), (400, 627), (333, 522), (278, 435), (231, 363),
+                  (193, 302), (161, 252), (134, 210)]
+
+
+@pytest.mark.parametrize("shapes", [PYRAMID_SHAPES, [(17, 33), (5, 7), (64, 64)],
+                                    [(40, 40)] * 16])
+def test_fast_score_nms_levels_kernel_equals_plain(dev, shapes):
+    """Exact equality level by level, from ONE launch: the bench camera's
+    8 level shapes, small odd shapes, and a full table of 16 levels."""
+    levels = [_noise(sh, i, dev) for i, sh in enumerate(shapes)]
+    before = kernels.launch_counts()["fast_score_nms_levels"]
+    got = kernels.fast_score_nms_levels(levels, 7.0)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fast_score_nms_levels"] == before + 1
+    for g, want in zip(got, kernels.fast_score_nms_levels_ref(levels, 7.0)):
+        assert torch.equal(g, want)
+    assert sum(int((g > 0).sum()) for g in got) > 0
+
+
+def test_fast_score_nms_levels_on_a_side_stream_and_in_a_cuda_graph(dev):
+    """The level table travels as a kernel parameter, so the launch works
+    on a non-default stream and can be captured in a CUDA graph: the replay
+    on new pixels equals the plain version."""
+    levels = [_noise(sh, i, dev) for i, sh in enumerate(PYRAMID_SHAPES[::3])]
+    want = kernels.fast_score_nms_levels_ref(levels, 7.0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = kernels.fast_score_nms_levels(levels, 7.0)
+    side.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = kernels.fast_score_nms_levels(levels, 7.0)
+    fresh = [_noise(im.shape, 100 + i, dev) for i, im in enumerate(levels)]
+    for im, new in zip(levels, fresh):
+        im.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = kernels.fast_score_nms_levels_ref(fresh, 7.0)
+    assert all(torch.equal(g, w) for g, w in zip(captured, want))
+
+
+def _words(rng, n, dev):
+    return torch.from_numpy(rng.randint(-2 ** 31, 2 ** 31, (n, 8), dtype=np.int64)
+                            .astype(np.int32)).to(dev)
 
 
 @pytest.mark.parametrize("n,m", [(16384, 1024), (1024, 1024), (16384, 16384), (1, 1),
@@ -52,21 +105,122 @@ def test_fast_score_nms_kernel_equals_plain(dev, shape):
 def test_hamming_kernel_equals_plain(dev, n, m):
     """Exact equality on random int32 words (all 32 bits used)."""
     rng = np.random.RandomState(n + m)
-    d1 = torch.from_numpy(rng.randint(-2 ** 31, 2 ** 31, (n, 8), dtype=np.int64)
-                          .astype(np.int32)).to(dev)
-    d2 = torch.from_numpy(rng.randint(-2 ** 31, 2 ** 31, (m, 8), dtype=np.int64)
-                          .astype(np.int32)).to(dev)
+    d1, d2 = _words(rng, n, dev), _words(rng, m, dev)
     got = kernels.hamming_matrix(d1, d2)
     torch.cuda.synchronize()
     assert torch.equal(got, kernels.hamming_matrix_ref(d1, d2))
+
+
+def _match_case(n, m, dev, ties):
+    """Random descriptors with about 25% of rows and columns invalid; with
+    `ties`, every 7th column repeats its left neighbour, every 5th row is
+    a copy of a column, and one row and one column are fully masked."""
+    rng = np.random.RandomState(n * 3 + m)
+    d1, d2 = _words(rng, n, dev), _words(rng, m, dev)
+    v1 = torch.from_numpy(rng.rand(n) < 0.75).to(dev)
+    v2 = torch.from_numpy(rng.rand(m) < 0.75).to(dev)
+    if ties:
+        d2[7::7] = d2[6:-1:7][: d2[7::7].shape[0]].clone()
+        src = torch.from_numpy(rng.randint(0, m, n)).to(dev)
+        d1[::5] = d2[src][::5]
+        v1[min(3, n - 1)] = False
+        v2[min(2, m - 1)] = False
+    return d1, v1, d2, v2
+
+
+@pytest.mark.parametrize("inner", ["popc", "mma"])
+@pytest.mark.parametrize("n,m,ties", [(16384, 1024, False), (1024, 1024, True),
+                                      (16384, 16384, True), (1, 1, False),
+                                      (300, 77, True), (65, 130, True), (33, 7, False)])
+def test_hamming_best_two_valid_kernel_equals_plain(dev, n, m, ties, inner):
+    """Exact equality of idx, best, second and the column argmin, for both
+    inner products; the plain version runs in row blocks at 16,384^2."""
+    d1, v1, d2, v2 = _match_case(n, m, dev, ties)
+    name = f"hamming_best_two_valid_{inner}"
+    before = kernels.launch_counts()[name]
+    got = kernels.hamming_best_two_valid(d1, v1, d2, v2, inner=inner)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 1
+    want = kernels.hamming_best_two_valid_ref(d1, v1, d2, v2, row_block=2048)
+    for g, w, what in zip(got, want, ("idx", "best", "second", "argmin_row")):
+        assert g.dtype == w.dtype and torch.equal(g, w), what
+    if ties and n > 100:
+        assert int(((got[1] == got[2]) & (got[1] < kernels.BIG)).sum()) > 0
+
+
+def _projection_case(n, m, dev):
+    """Positions on a half-pixel grid (pairs exactly on the radius occur),
+    duplicated features, one fully masked row and column."""
+    rng = np.random.RandomState(n + 7 * m)
+    d1, v1, d2, v2 = _match_case(n, m, dev, True)
+    feat_uv = np.round(rng.uniform(0, 700, (m, 2)) * 2) / 2
+    feat_uv[7::7] = feat_uv[6:-1:7][: len(feat_uv[7::7])]
+    src = rng.randint(0, m, n)
+    proj_uv = feat_uv[src] + np.round(rng.normal(0, 6, (n, 2)) * 2) / 2
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+    d1 = torch.where(torch.from_numpy(rng.rand(n) < 0.5).to(dev)[:, None],
+                     d2[torch.from_numpy(src).to(dev)], d1)
+    return dict(mp_desc=d1, proj_uv=f32(proj_uv), proj_valid=v1,
+                radius=f32(rng.choice([2.5, 5.0, 6.5, 10.0, 15.0], n)),
+                pred_level=i32(rng.randint(0, 8, n)), feat_desc=d2,
+                feat_uv=f32(feat_uv), feat_valid=v2,
+                feat_level=i32(rng.randint(0, 8, m)))
+
+
+@pytest.mark.parametrize("n,m", [(16384, 1024), (1024, 1024), (300, 77), (5, 3),
+                                 (65, 130)])
+@pytest.mark.parametrize("radius,level_slack", [("tensor", 1), (7.5, 2), ("tensor", 8)])
+def test_hamming_best_two_projection_kernel_equals_plain(dev, n, m, radius, level_slack):
+    """Exact equality of idx, best and second: the kernel's float32 radius
+    test agrees with the plain version's on every pair, edge pairs
+    included."""
+    c = _projection_case(n, m, dev)
+    if radius != "tensor":
+        c["radius"] = radius
+    before = kernels.launch_counts()["hamming_best_two_projection"]
+    got = kernels.hamming_best_two_projection(**c, level_slack=level_slack)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["hamming_best_two_projection"] == before + 1
+    want = kernels.hamming_best_two_projection_ref(**c, level_slack=level_slack)
+    for g, w, what in zip(got, want, ("idx", "best", "second")):
+        assert g.dtype == w.dtype and torch.equal(g, w), what
+    if n > 100:
+        assert int((got[1] < kernels.BIG).sum()) > 10
+
+
+def test_fused_matches_on_a_side_stream(dev):
+    """Both fused matches launched on a non-default stream."""
+    d1, v1, d2, v2 = _match_case(300, 77, dev, True)
+    c = _projection_case(300, 77, dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got_v = [kernels.hamming_best_two_valid(d1, v1, d2, v2, inner=i)
+                 for i in ("popc", "mma")]
+        got_p = kernels.hamming_best_two_projection(**c, level_slack=1)
+    side.synchronize()
+    want_v = kernels.hamming_best_two_valid_ref(d1, v1, d2, v2)
+    for got in got_v:
+        assert all(torch.equal(g, w) for g, w in zip(got, want_v))
+    want_p = kernels.hamming_best_two_projection_ref(**c, level_slack=1)
+    assert all(torch.equal(g, w) for g, w in zip(got_p, want_p))
 
 
 def test_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError):
         kernels.fast_score_nms(torch.zeros((8, 8), device=dev, dtype=torch.float64), 7.0)
     with pytest.raises(ValueError):
+        kernels.fast_score_nms_levels([torch.zeros((8, 8), device=dev)] * 17, 7.0)
+    with pytest.raises(ValueError):
         kernels.hamming_matrix(torch.zeros((4, 8), device=dev, dtype=torch.int32),
                                torch.zeros((4, 4), device=dev, dtype=torch.int32))
+    d = torch.zeros((4, 8), device=dev, dtype=torch.int32)
+    v = torch.ones(4, device=dev, dtype=torch.bool)
+    with pytest.raises(ValueError):
+        kernels.hamming_best_two_valid(d, v.to(torch.uint8), d, v)
+    with pytest.raises(ValueError):
+        kernels.hamming_best_two_valid(d, v, d, v, inner="wgmma")
 
 
 def _run_small_sequence(device):
@@ -83,6 +237,10 @@ def _run_small_sequence(device):
     e, g = ate.camera_centers(est[n0:]), ate.camera_centers(seq.T_cw[n0:])
     span = float(np.linalg.norm(g.max(0) - g.min(0)))
     return slam, states.count(TrackState.OK), ate.ate_rmse(e, g) / span
+
+
+def test_monoslam_without_a_device_runs_on_the_card(dev):
+    assert MonoSlam(cfg.small_synthetic()).device.type == "cuda"
 
 
 def test_monoslam_on_the_card_tracks_like_the_cpu(dev, monkeypatch):
@@ -105,7 +263,9 @@ def test_monoslam_on_the_card_tracks_like_the_cpu(dev, monkeypatch):
     slam, n_ok, ate_rel = _run_small_sequence(dev)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    assert counts["fast_score_nms"] > 0 and counts["hamming_matrix"] > 0, counts
+    assert counts["fast_score_nms_levels"] > 0, counts
+    assert counts["hamming_best_two_valid_popc"] + counts["hamming_best_two_valid_mma"] > 0, counts
+    assert counts["hamming_best_two_projection"] > 0, counts
     assert slam.state == TrackState.OK
     assert slam.stats["kf_inserted"] >= 3
     assert slam.stats["frames_tracked"] > 25

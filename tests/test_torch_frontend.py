@@ -17,6 +17,7 @@ from multi_orbslam3_tpu_torch import interop
 from multi_orbslam3_tpu_torch.frontend import extractor as tex
 from multi_orbslam3_tpu_torch.frontend import kernels
 from multi_orbslam3_tpu_torch.frontend import matcher as tm
+from multi_orbslam3_tpu_torch import config as tcfg
 from multi_orbslam3_tpu_torch.frontend import orb as torb
 from multi_orbslam3_tpu_torch.frontend import pyramid as tpyr
 
@@ -33,7 +34,8 @@ def frames():
     imgs = np.clip(np.round(seq.images), 0, 255).astype(np.uint8)
     feats_j = [jex.extract_features(jnp.asarray(imgs[i], jnp.float32), c)
                for i in (0, 5)]
-    feats_t = [tex.extract_features(t(imgs[i]), c) for i in (0, 5)]
+    ct = tcfg.small_synthetic()
+    feats_t = [tex.extract_features(t(imgs[i]), ct) for i in (0, 5)]
     return c, imgs, feats_j, feats_t
 
 

@@ -1,5 +1,7 @@
 """The plain PyTorch versions of the two hand-written kernels (K1 FAST
-score + NMS, K2 Hamming matrix) against the JAX package, on the CPU.
+score + NMS, one level and a whole pyramid; K2 Hamming matrix) against the
+JAX package, on the CPU. K2's fused forms are in
+``tests/test_torch_match_fused.py``.
 
 On the GPU each kernel is held against these plain versions (exact
 equality) by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -50,6 +52,26 @@ def test_fast_score_nms_plain_matches_jax_on_a_resized_level():
     np.testing.assert_array_equal(got, want)
 
 
+def test_fast_score_nms_levels_plain_matches_jax_on_a_pyramid_with_a_plateau():
+    """Exact, level by level: a 3-level pyramid (JAX's resize, handed to
+    both as the same float arrays) of an image with flat plateaus, through
+    the multi-level entry point against fast.nms3x3(fast.fast_score(.))."""
+    rng = np.random.RandomState(6)
+    img = np.round(rng.uniform(0, 255, (90, 118))).astype(np.float32)
+    img[10:30, 12:50] = 100.0
+    img[50:80, 60:110] = 30.0
+    levels = [np.array(l) for l in jpyramid.build_pyramid(jnp.asarray(img), 3, 1.2)]
+    assert len({l.shape for l in levels}) == 3
+    got = kernels.fast_score_nms_levels([torch.from_numpy(l) for l in levels], 7.0)
+    assert len(got) == 3
+    for l, g in zip(levels, got):
+        want = np.asarray(jfast.nms3x3(jfast.fast_score(jnp.asarray(l), 7.0)))
+        assert (want > 0).sum() > 10
+        np.testing.assert_array_equal(g.numpy(), want)
+    one = kernels.fast_score_nms(torch.from_numpy(levels[1]), 7.0)
+    np.testing.assert_array_equal(one.numpy(), got[1].numpy())
+
+
 def test_fast_score_matches_jax_without_nms():
     """Exact: the score map alone, border zeroing included."""
     rng = np.random.RandomState(4)
@@ -95,9 +117,19 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     kernels.reset_launch_counts()
     img = torch.zeros((32, 32))
     d = torch.zeros((4, 8), dtype=torch.int32)
+    v = torch.ones(4, dtype=torch.bool)
+    uv = torch.zeros((4, 2))
+    lv = torch.zeros(4, dtype=torch.int32)
     kernels.fast_score_nms(img, 7.0)
+    kernels.fast_score_nms_levels([img, img[:16]], 7.0)
     kernels.hamming_matrix(d, d)
-    assert kernels.launch_counts() == {"fast_score_nms": 0, "hamming_matrix": 0}
+    kernels.hamming_best_two_valid(d, v, d, v)
+    kernels.hamming_best_two_projection(d, uv, v, 3.0, lv, d, uv, v, lv, 1)
+    counts = kernels.launch_counts()
+    assert set(counts) == {"fast_score_nms_levels", "hamming_matrix",
+                           "hamming_best_two_valid_popc", "hamming_best_two_valid_mma",
+                           "hamming_best_two_projection"}
+    assert not any(counts.values())
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -109,3 +141,12 @@ def test_other_devices_raise_instead_of_falling_back():
         kernels.hamming_matrix(d, d)
     with pytest.raises(ValueError):
         kernels.hamming_matrix(torch.zeros((4, 8), dtype=torch.int32), d)
+    v = torch.ones(4, dtype=torch.bool)
+    with pytest.raises(ValueError):
+        kernels.fast_score_nms_levels([torch.zeros((32, 32)), img], 7.0)
+    with pytest.raises(ValueError):
+        kernels.hamming_best_two_valid(d, v, torch.zeros((4, 8), dtype=torch.int32), v)
+    with pytest.raises(ValueError):
+        kernels.hamming_best_two_projection(
+            d, torch.zeros((4, 2)), v, 3.0, torch.zeros(4, dtype=torch.int32), d,
+            torch.zeros((4, 2)), v, torch.zeros(4, dtype=torch.int32), 1)

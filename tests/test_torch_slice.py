@@ -31,13 +31,19 @@ from multi_orbslam3_tpu.map import mapstate as jms
 from multi_orbslam3_tpu.pipeline import local_mapping as jlm
 from multi_orbslam3_tpu.pipeline import system as jsys
 from multi_orbslam3_tpu.pipeline import tracking as jtr
+from multi_orbslam3_tpu_torch import config as tcfg
 from multi_orbslam3_tpu_torch import interop
 from multi_orbslam3_tpu_torch.bow import vocabulary as tvoc
+from multi_orbslam3_tpu_torch.dataio import synthetic as tsynthetic
 from multi_orbslam3_tpu_torch.geometry import camera as tcam
 from multi_orbslam3_tpu_torch.map import audit as taudit
 from multi_orbslam3_tpu_torch.pipeline import local_mapping as tlm
 from multi_orbslam3_tpu_torch.pipeline import system as tsys
 from multi_orbslam3_tpu_torch.pipeline import tracking as ttr
+
+
+# each package gets a config object of its own, built from the same values
+CT = tcfg.small_synthetic()
 
 
 def t(a):
@@ -97,7 +103,7 @@ def test_fused_step_chained_matches_jax(setup):
     fj, rj, pose_j, vel_j = jtr._fused_step_chained(c)(
         mj, jnp.asarray(imgs[5]), jnp.asarray(T_cur), jnp.asarray(T_vel))
     mt = interop.map_from_numpy(jax_map_np(mj))
-    ft, rt, pose_t, vel_t = ttr.fused_step_chained(c, mt, t(imgs[5]), t(T_cur), t(T_vel))
+    ft, rt, pose_t, vel_t = ttr.fused_step_chained(CT, mt, t(imgs[5]), t(T_cur), t(T_vel))
     n_j, n_t = int(rj.n_inliers), int(rt.n_inliers)
     assert n_j > 40
     assert abs(n_t - n_j) <= 0.03 * n_j
@@ -122,10 +128,10 @@ def test_map_keyframe_matches_jax(setup):
                                       jnp.asarray(seq.T_cw[6]), c)
     mj, k = jms.add_keyframe(mj, fj, jnp.asarray(seq.T_cw[6]),
                              float(seq.timestamps[6]), rj.feat_mp, 0)
-    kw = tlm.mapping_kwargs(c)
+    kw = tlm.mapping_kwargs(CT)
     mt = interop.map_from_numpy(jax_map_np(mj))
     out_j = jlm.map_keyframe(mj, k, Kj, **kw)
-    Kt = tcam.intrinsics_from_config(c.camera)
+    Kt = tcam.intrinsics_from_config(CT.camera)
     out_t = tlm.map_keyframe(mt, int(k), Kt, **kw)
     for name in ("n_created", "n_fused"):
         a, b = int(getattr(out_t, name)), int(getattr(out_j, name))
@@ -137,6 +143,8 @@ def test_map_keyframe_matches_jax(setup):
 
 
 def _run(slam_cls, c, seq, pipelined, **kw):
+    if slam_cls is tsys.MonoSlam:
+        c, kw = CT, dict(kw, device="cpu")
     slam = slam_cls(c, **kw)
     step = slam.process_frame_pipelined if pipelined else slam.process_frame
     for i in range(seq.images.shape[0]):
@@ -225,7 +233,7 @@ def test_relocalize_candidate_matches_jax(setup):
                                       for f in fj._fields})
     g = torch.Generator()
     g.manual_seed(0)
-    rt = ttr.relocalize_candidate(mt, 0, ft, tcam.intrinsics_from_config(c.camera), g,
+    rt = ttr.relocalize_candidate(mt, 0, ft, tcam.intrinsics_from_config(CT.camera), g,
                                   scale_factor=c.orb.scale_factor)
     n_j, n_t = int(rj.n_inliers), int(rt.n_inliers)
     assert n_j > 30 and abs(n_t - n_j) <= 0.1 * n_j, (n_t, n_j)
@@ -241,7 +249,7 @@ def replay(lc_runs, e2e_seq, small_voc):
     switches to localization-only mode and replays frames 25-39."""
     c, seq = e2e_seq
     mapper = lc_runs(False)[0]
-    loc = tsys.MonoSlam(c, vocabulary=small_voc)
+    loc = tsys.MonoSlam(CT, vocabulary=small_voc, device="cpu")
     loc.m = mapper.m
     loc.activate_localization_mode()
     before = interop.map_to_numpy(loc.m)
@@ -280,10 +288,11 @@ def test_repair_a_loop_closing_on_by_default_with_a_vocabulary(small_voc):
         params = inspect.signature(cls).parameters
         assert params["enable_loop_closing"].default is True
         assert "vocabulary" in params
-    on = tsys.MonoSlam(c, vocabulary=small_voc)
+    on = tsys.MonoSlam(CT, vocabulary=small_voc, device="cpu")
     assert on.loop_closer is not None and on.loop_closer.voc is small_voc
     assert on.reloc_db is None
-    off = tsys.MonoSlam(c, enable_loop_closing=False, vocabulary=small_voc)
+    off = tsys.MonoSlam(CT, enable_loop_closing=False, vocabulary=small_voc,
+                        device="cpu")
     assert off.loop_closer is None and off.reloc_voc is small_voc
     assert off.reloc_db.word.shape[0] == c.map.max_keyframes
 
@@ -302,7 +311,7 @@ def test_repair_c_adoption_runs_the_closer_and_regauges(lc_runs, small_voc):
     (T_cur' = T_cur T_k^-1 T_k') and the device pose chain is dropped."""
     mapper = lc_runs(False)[0]
     c = cfg.small_synthetic()
-    slam = tsys.MonoSlam(c, vocabulary=small_voc)
+    slam = tsys.MonoSlam(CT, vocabulary=small_voc, device="cpu")
     k = 3
     T_k = mapper.m.kf_pose[k].numpy()
     shift = np.eye(4, dtype=np.float32)
@@ -342,7 +351,7 @@ def test_repair_d_defer_mapping_false_adopts_synchronously(small_voc):
     f["uv_und"] = f["uv"]
     feats = interop.features_from_numpy(f)
     for defer_mapping, want in ((True, True), (False, False)):
-        slam = tsys.MonoSlam(c, vocabulary=small_voc)
+        slam = tsys.MonoSlam(CT, vocabulary=small_voc, device="cpu")
         slam.defer_mapping = defer_mapping
         slam._active_map_kfs = 20
         seen = []
@@ -356,7 +365,7 @@ def test_repair_e_localization_mode_switches(small_voc):
     the map's keyframes, no keyframe decisions, no map reset when lost;
     a checkpoint path is refused (checkpoints are not ported yet)."""
     c = cfg.small_synthetic()
-    slam = tsys.MonoSlam(c, vocabulary=small_voc)
+    slam = tsys.MonoSlam(CT, vocabulary=small_voc, device="cpu")
     with pytest.raises(NotImplementedError):
         slam.activate_localization_mode("map.npz")
     slam.activate_localization_mode()
@@ -374,7 +383,7 @@ def test_lost_localization_relocalizes_before_trusting_its_last_pose(lc_runs, e2
     relocalization; here the frame is recovered by relocalization, with no
     velocity carried over from the stale pose."""
     c, seq = e2e_seq
-    loc = tsys.MonoSlam(c, vocabulary=small_voc)
+    loc = tsys.MonoSlam(CT, vocabulary=small_voc, device="cpu")
     loc.m = lc_runs(False)[0].m
     loc.activate_localization_mode()
     st = loc.process_frame(seq.images[20], float(seq.timestamps[20]))
@@ -420,11 +429,11 @@ def test_port_atlas_loop_welds_submaps_on_revisit():
     170 frames of a 2.5 pi orbit with a +10 s timestamp jump at frame 80;
     place recognition must weld the two sub-maps back into one, and the
     final keyframe trajectory must hold ATE < 0.12 x max(span, 1)."""
-    c = cfg.synthetic_mono()
+    c = tcfg.synthetic_mono()
     n_frames = 170
-    seq = synthetic.make_sequence(c, n_frames=n_frames, n_points=1200, seed=21,
+    seq = tsynthetic.make_sequence(c, n_frames=n_frames, n_points=1200, seed=21,
                                   trajectory="circle", phase=1.1, arc=2.5 * np.pi)
-    slam = tsys.MonoSlam(c)
+    slam = tsys.MonoSlam(c, device="cpu")
     slam.defer_mapping = False
     for i in range(n_frames):
         slam.process_frame(seq.images[i], float(seq.timestamps[i]) + (10.0 if i >= 80 else 0.0))
