@@ -17,8 +17,10 @@ failure:
    - K2 as a matrix at 16384x1024, 1024x1024 and 16384x16384;
    - K2's fused matches, which write no N x M: the validity-masked one
      (both inner products, __popc and the 1-bit tensor-core MMA) at the
-     same three shapes, and the projection-masked one at 16384x1024 and
-     1024x1024, on random descriptors with about 25% of rows and columns
+     same three shapes, the projection-masked one at 16384x1024 and
+     1024x1024, and the stereo-masked one at 1024x1024 (also on a case
+     that puts pairs exactly on the row tolerance and the disparity
+     limits), on random descriptors with about 25% of rows and columns
      invalid and on a tie case (every 7th descriptor duplicated, one
      fully masked row and column); the inner products are also timed with
      every row and column valid and, at 16384x16384, with about 4% valid
@@ -55,12 +57,28 @@ failure:
    essential-graph audit passes and the keyframe ATE < 0.12 x max(span, 1).
    Prints the times of the verification cascade and its stages,
    correct_loop and weld_after_merge (CUDA events);
-7. sync_free: one fused step, one mapping chain and one place-recognition
-   step on the final map run under torch's sync debug mode "error": none
-   reads the device back.
+7. stereo: bench_stereo as the JAX package scores it (baseline 0.11 m, 80
+   frames, 1200 landmarks, seed 9): StereoSlam with loop closing on
+   through process_frame_stereo_pipelined. State OK at the end, >= 70
+   frames OK, ATE without scale alignment <= 0.02 x span, K1 and the
+   stereo match launched once a frame;
+8. rgbd: the same sequence's depth images through RGBDSlam, 40 frames:
+   state OK, >= 35 OK, ATE <= 0.08 x span;
+9. mono_inertial (this and the next phase under torch's deterministic
+   algorithms, see `reproducible`): bench_mono_inertial (EuRoC's T_bc, 90
+   frames, 1200 landmarks, seed 7, lateral sway): IMU initialized, init scale in
+   (0.05, 50), >= 8 keyframes evaluated after the init frame, keyframe ATE
+   <= 0.1 x span; prints the ms per frame of preintegration, VI pose
+   optimisation and the window BA (CUDA events);
+10. stereo_inertial: tests/test_stereo_inertial.py's drill at bench width,
+   50 frames: IMU initialized, scale 1 +- 1e-5, ATE <= 0.1 x max(span, 1);
+   then RGBDInertialSlam for 20 frames: state OK;
+11. sync_free: one fused step (mono and stereo), one mapping chain and one
+   place-recognition step on the final map run under torch's sync debug
+   mode "error": none reads the device back.
 
 Kernel launch counts are reset just before each driven path (the timed
-passes of 3 and 4, and 5 and 6) and read just after it; each fails unless
+passes of 3 and 4, and 5 to 10) and read just after it; each fails unless
 K1 and a K2 kernel were launched. The last three lines of stdout are the
 card's nvidia-smi name/power-limit line, a JSON summary of the kernels
 (one entry for each TPU kernel, its variants beneath it, launches summed
@@ -72,6 +90,7 @@ nothing of the JAX package.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import subprocess
 import sys
@@ -100,7 +119,8 @@ KERNELS = {
             "hamming_matrix": "multi_orbslam3_tpu_torch/csrc/hamming.cu",
             "hamming_best_two_valid_popc": "multi_orbslam3_tpu_torch/csrc/hamming.cu",
             "hamming_best_two_valid_mma": "multi_orbslam3_tpu_torch/csrc/hamming_mma.cu",
-            "hamming_best_two_projection": "multi_orbslam3_tpu_torch/csrc/hamming.cu"}},
+            "hamming_best_two_projection": "multi_orbslam3_tpu_torch/csrc/hamming.cu",
+            "hamming_best_two_stereo": "multi_orbslam3_tpu_torch/csrc/hamming.cu"}},
 }
 
 # Peak rates the bounds are taken against (one H100 SXM): HBM bytes/s from
@@ -129,6 +149,31 @@ def emit(phase: str, **kw) -> None:
 def start_phase() -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+
+
+@contextlib.contextmanager
+def reproducible():
+    """Run the block under torch's deterministic algorithms (warn only).
+
+    The port's normal equations are summed with index_add, which on a GPU
+    adds with float atomics in whatever order the threads arrive. The
+    monocular-inertial estimator amplifies that last-bit noise: between the
+    first inertial initialisation and its refinement two seconds later the
+    map's scale is 10-30% off (as in the JAX package, whose refinement
+    reports 0.82), the inertial factor disagrees with vision, and runs of
+    the same code end anywhere from 0.013 to 0.105 x span. XLA's scatter-add
+    keeps one order, so the JAX package gives one result a build; this
+    switch gives the port the same property for the inertial phases, whose
+    gates are then checked on a result that repeats. (The port works on one
+    stream, so cuBLAS keeps one order without a fixed workspace: the result
+    is the same digits with and without CUBLAS_WORKSPACE_CONFIG.)"""
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
 
 
 class StageTimes:
@@ -226,6 +271,25 @@ def device_ms(fn, kernel_name: str, launches: int = 50) -> tuple:
     return start.elapsed_time(end) / launches, "cuda_graph"
 
 
+def device_launches(fn) -> int:
+    """Kernels and device copies that one call of fn launches, counted by
+    torch.profiler (0 if the profiler shows no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = 0
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0:
+            n += evt.count
+    return n
+
+
 def bound(card: dict, nbytes: float, popc: float = 0.0, fp32_instr: float = 0.0,
           minmax_instr: float = 0.0, mma_int8_ops: float = 0.0) -> dict:
     """The least time the card could take: the largest of the bytes over
@@ -242,13 +306,21 @@ def bound(card: dict, nbytes: float, popc: float = 0.0, fp32_instr: float = 0.0,
             "limit": limit}
 
 
-def euroc_scale_config():
-    """The bench_mono configuration (eval/benchmarks.py::_euroc_scale_config):
+# EuRoC cam0 body-from-camera extrinsics (eval/benchmarks.py::EUROC_T_BC)
+EUROC_T_BC = (
+    0.0148655429818, -0.999880929698, 0.00414029679422, -0.0216401454975,
+    0.999557249008, 0.0149672133247, 0.025715529948, -0.064676986768,
+    -0.0257744366974, 0.00375618835797, 0.999660727178, 0.00981073058949,
+    0.0, 0.0, 0.0, 1.0)
+
+
+def euroc_scale_config(**camera_kw):
+    """The bench configuration (eval/benchmarks.py::_euroc_scale_config):
     EuRoC-sized pinhole camera with the default capacities (1024 ORB
     features over 8 levels, 512 keyframes, 16384 landmarks)."""
     from multi_orbslam3_tpu_torch import config as cfg
     cam = cfg.CameraConfig(width=752, height=480, fx=458.654, fy=457.296,
-                           cx=376.0, cy=240.0)
+                           cx=376.0, cy=240.0, **camera_kw)
     return cfg.SystemConfig(camera=cam)
 
 
@@ -349,8 +421,9 @@ def k2_shapes(cfg) -> tuple:
     return (P, n_feat), (n_feat, n_feat), (P, P)
 
 
-def check_k1(frame: np.ndarray, cfg, card: dict, gen) -> dict:
-    """K1 level by level, then as one launch for the pyramid."""
+def check_k1(frame: np.ndarray, frame_right: np.ndarray, cfg, card: dict, gen) -> dict:
+    """K1 level by level, as one launch for the pyramid, and as one launch
+    for the two pyramids of a stereo frame."""
     from multi_orbslam3_tpu_torch.frontend import kernels, pyramid
     dev = torch.device("cuda")
     o = cfg.orb
@@ -396,9 +469,28 @@ def check_k1(frame: np.ndarray, cfg, card: dict, gen) -> dict:
             # more where the arc search runs
             **bound(card, 8.0 * pixels, fp32_instr=16.0 * interior,
                     minmax_instr=8.0 * interior + 158.0 * passing)}
+    # a stereo frame: the 8 + 8 levels of both images in one launch
+    right = [im.contiguous() for im in pyramid.build_pyramid(
+        torch.from_numpy(frame_right).to(dev).float(), o.n_levels, o.scale_factor)]
+    both = levels + right
+    got = kernels.fast_score_nms_levels(both, thr)
+    torch.cuda.synchronize()
+    require_equal("K1 stereo pair", got,
+                  kernels.fast_score_nms_levels(levels, thr)
+                  + kernels.fast_score_nms_levels(right, thr))
+    interior, passing = compass_pass_count(both, thr)
+    ms, how = device_ms(lambda: kernels.fast_score_nms_levels(both, thr),
+                        "fast_score_nms_levels_kernel")
+    pair = {"levels": len(both), "device_ms": ms, "device_ms_from": how,
+            "call_ms": call_ms(lambda: kernels.fast_score_nms_levels(both, thr)),
+            **bound(card, 8.0 * sum(im.numel() for im in both),
+                    fp32_instr=16.0 * interior,
+                    minmax_instr=8.0 * interior + 158.0 * passing)}
     emit("kernel_fast_score_nms", exact=True, per_level=per_level,
-         per_level_device_ms_sum=sum(r["device_ms"] for r in per_level), all_levels=k1)
-    return {"fast_score_nms_levels": dict(k1["frame"], on_noise=k1["noise"])}
+         per_level_device_ms_sum=sum(r["device_ms"] for r in per_level), all_levels=k1,
+         stereo_pair=pair)
+    return {"fast_score_nms_levels": dict(k1["frame"], on_noise=k1["noise"],
+                                          stereo_pair=pair)}
 
 
 
@@ -508,6 +600,92 @@ def check_k2_fused(cfg, card: dict, gen) -> dict:
 
 
 
+def stereo_case(n: int, m: int, gen, dev, kind: str, width: int, height: int) -> dict:
+    """Inputs of the stereo match at n x m: left rows near the right
+    columns they were made from, about 25% of each invalid. "ties": also
+    every 7th column a copy of its neighbour, rows that copy columns, one
+    fully masked row and column. "tolerance": each left feature sits
+    exactly on the row tolerance of its level, one float32 step beyond it,
+    or at disparity exactly 0.3, 128 or one step inside, relative to its
+    right feature (integer right positions keep most differences exact)."""
+    from multi_orbslam3_tpu_torch.frontend import kernels
+    rnd = lambda *shape: torch.rand(shape, generator=gen, device=dev)
+    rint = lambda lo, hi, k: torch.randint(lo, hi, (k,), generator=gen, device=dev)
+    dL, dR = random_words(n, gen, dev), random_words(m, gen, dev)
+    vL, vR = rnd(n) < 0.75, rnd(m) < 0.75
+    uvR = torch.round(rnd(m, 2) * torch.tensor([width, height], device=dev))
+    levelR = rint(0, 8, m).to(torch.int32)
+    src = rint(0, m, n)
+    if kind == "ties":
+        k = dR[7::7].shape[0]
+        dR[7::7] = dR[6:-1:7][:k].clone()
+        uvR[7::7] = uvR[6:-1:7][:k].clone()
+        vL[min(3, n - 1)] = False
+        vR[min(2, m - 1)] = False
+    levelL = torch.clamp(levelR[src] + rint(-2, 3, n).to(torch.int32), 0, 7)
+    tol = kernels.stereo_row_tolerance(levelL, 2.0)
+    if kind == "tolerance":
+        step = rint(0, 6, n)
+        inf = torch.full_like(tol, float("inf"))
+        zero = torch.zeros_like(tol)
+        d128 = torch.full_like(tol, 128.0)
+        dv = torch.where(step == 0, tol, torch.where(
+            step == 1, torch.nextafter(tol, inf), torch.where(step == 2, -tol, zero)))
+        disp = torch.where(step == 3, torch.full_like(tol, 0.3), torch.where(
+            step == 4, d128, torch.where(step == 5, torch.nextafter(d128, zero),
+                                         torch.full_like(tol, 40.0))))
+        uvL = uvR[src] + torch.stack([disp, dv], dim=1)
+    else:
+        uvL = uvR[src] + torch.stack([rnd(n) * 145.0 - 5.0,
+                                      torch.randn(n, generator=gen, device=dev) * 3.0], dim=1)
+    dL = torch.where((rnd(n) < 0.6)[:, None], dR[src], dL)
+    return dict(descL=dL, uvL=uvL.contiguous(), validL=vL, levelL=levelL, tol=tol,
+                descR=dR, uvR=uvR, validR=vR, levelR=levelR, max_disparity=128.0)
+
+
+def check_k2_stereo(cfg, card: dict, gen) -> dict:
+    """K2's stereo-masked fused match at the stereo frame's shape (features
+    x features): exactness on random, tie and on-the-tolerance cases, then
+    times; the bound counts the pairs that pass the float mask."""
+    from multi_orbslam3_tpu_torch.frontend import kernels
+    dev = torch.device("cuda")
+    n = m = cfg.orb.n_features
+    rows = []
+    for kind in ("random", "ties", "tolerance"):
+        c = stereo_case(n, m, gen, dev, kind, cfg.camera.width, cfg.camera.height)
+        fn = lambda: kernels.hamming_best_two_stereo(**c)
+        got = fn()
+        torch.cuda.synchronize()
+        require_equal(f"K2 stereo {n}x{m} ({kind})", got,
+                      kernels.hamming_best_two_stereo_ref(**c))
+        matched = int((got[1] < kernels.BIG).sum())
+        if matched == 0 or matched == n:
+            raise AssertionError(f"K2 stereo {n}x{m} ({kind}): {matched} of {n} rows "
+                                 "have a pair in their window")
+        if kind == "ties":
+            continue
+        # pairs that pass the mask, from the plain arithmetic
+        dv = (c["uvL"][:, None, 1] - c["uvR"][None, :, 1]).abs()
+        disp = c["uvL"][:, None, 0] - c["uvR"][None, :, 0]
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+        passing = float(((dv <= c["tol"][:, None]) & (disp > f32(0.3)) & (disp < f32(128.0))
+                         & ((c["levelL"][:, None] - c["levelR"][None, :]).abs() <= 1)
+                         & c["validL"][:, None] & c["validR"][None, :]).sum())
+        n_valid = float(c["validL"].sum()) * float(c["validR"].sum())
+        ms, how = device_ms(fn, "best_two_popc_kernel")
+        rows.append({
+            "shape": [n, m], "inputs": kind, "valid_pairs": n_valid,
+            "window_pairs": passing, "rows_matched": matched, "max_abs_err": 0.0,
+            "device_ms": ms, "device_ms_from": how, "call_ms": call_ms(fn),
+            "plain_ms": call_ms(lambda: kernels.hamming_best_two_stereo_ref(**c), reps=5),
+            "library_ms": None,
+            # a valid pair: 2 subtractions and an abs, then 3 compares
+            **bound(card, 49.0 * n + 45.0 * m + 16.0 * n, popc=8.0 * passing,
+                    fp32_instr=3.0 * n_valid, minmax_instr=3.0 * n_valid)})
+    emit("kernel_hamming_best_two_stereo", exact=True, shapes=rows)
+    return {"hamming_best_two_stereo": dict(rows[0], shapes=rows)}
+
+
 def check_matcher_memory(cfg, gen) -> None:
     """The matchers allocate no N x M tensor on the GPU."""
     from multi_orbslam3_tpu_torch.frontend import matcher
@@ -530,16 +708,17 @@ def check_matcher_memory(cfg, gen) -> None:
         raise AssertionError(f"the matchers allocated {extra} bytes: an N x M tensor")
 
 
-def phase_kernels(frame: np.ndarray, cfg, card: dict) -> dict:
+def phase_kernels(frame: np.ndarray, frame_right: np.ndarray, cfg, card: dict) -> dict:
     """Every kernel against its plain version at the main path's shapes,
     with its times and its bound; {variant name: row}. Each check frees its
     tensors before the next, so the phase's peak is the plain matrix
     version's at 16384x16384."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    rows = check_k1(frame, cfg, card, gen)
+    rows = check_k1(frame, frame_right, cfg, card, gen)
     rows.update(check_k2_matrix(cfg, card, gen))
     rows.update(check_k2_fused(cfg, card, gen))
+    rows.update(check_k2_stereo(cfg, card, gen))
     check_matcher_memory(cfg, gen)
     return rows
 
@@ -577,10 +756,10 @@ def drive_mono(cfg, seq, device: str, loop_closing: bool,
     return slam, np.asarray(frame_ms), wall, kernels.launch_counts()
 
 
-def phase_sync_free(cfg, slam, seq) -> None:
-    """The fused step, the mapping chain and the place-recognition step
-    launch their work without one device->host read: all run under
-    torch's sync debug mode "error"."""
+def phase_sync_free(cfg, slam, seq, stereo_cfg, stereo_slam, stereo_seq) -> None:
+    """The fused step (mono and stereo), the mapping chain and the
+    place-recognition step launch their work without one device->host
+    read: all run under torch's sync debug mode "error"."""
     from multi_orbslam3_tpu_torch.pipeline import local_mapping, loop_closing, tracking
     start_phase()
     img = slam.to_device(seq.images[-1])
@@ -588,17 +767,24 @@ def phase_sync_free(cfg, slam, seq) -> None:
     T_vel = slam._upload(slam.T_vel)
     k = int(slam.m.n_kf) - 1
     lc = slam.loop_closer
+    il = stereo_slam.to_device(stereo_seq.images[-1])
+    ir = stereo_slam.to_device(stereo_seq.images_right[-1])
+    Ts_cur = stereo_slam._upload(stereo_slam.T_cur)
+    Ts_vel = stereo_slam._upload(stereo_slam.T_vel)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         tracking.fused_step_chained(cfg, slam.m, img, T_cur, T_vel)
+        tracking.fused_step_stereo_chained(stereo_cfg, stereo_slam.m, il, ir,
+                                           Ts_cur, Ts_vel)
         local_mapping.map_keyframe(slam.m, k, slam.K,
                                    **local_mapping.mapping_kwargs(cfg))
         loop_closing._pr_step(lc.db, lc.voc, slam.m, k)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    emit("sync_free", fused_step_chained=True, map_keyframe=True, pr_step=True)
+    emit("sync_free", fused_step_chained=True, fused_step_stereo_chained=True,
+         map_keyframe=True, pr_step=True)
 
 
 def ate_of(slam, seq, ok_idx, offset: int = 0, with_scale: bool = True) -> tuple:
@@ -614,10 +800,16 @@ def ate_of(slam, seq, ok_idx, offset: int = 0, with_scale: bool = True) -> tuple
 
 
 def check_launches(launches: dict, problems: list, k1_expected=None,
-                   both_fused: bool = False) -> None:
+                   both_fused: bool = False, stereo_expected=None) -> None:
     """K1 and a fused K2 kernel must have been launched on the path: K1
-    exactly k1_expected times where that is given (once a frame), and with
-    both_fused the validity and the projection match each at least once."""
+    exactly k1_expected times where that is given (once a frame), with
+    both_fused the validity and the projection match each at least once,
+    and the stereo match exactly stereo_expected times where given."""
+    if stereo_expected is not None and \
+            launches["hamming_best_two_stereo"] != stereo_expected:
+        problems.append(f"K2's stereo match was launched "
+                        f"{launches['hamming_best_two_stereo']} times on this path, "
+                        f"not {stereo_expected}")
     k1 = launches["fast_score_nms_levels"]
     if k1 <= 0 or (k1_expected is not None and k1 != k1_expected):
         problems.append(f"K1 was launched {k1} times on this path"
@@ -833,26 +1025,309 @@ def phase_atlas_loop(device: str = "cuda") -> dict:
     return res
 
 
+def latency_stats(frame_ms, wall: float) -> dict:
+    F = len(frame_ms)
+    return {"fps": F / wall, "wall_s": wall,
+            "frame_ms_p50": float(np.percentile(frame_ms, 50)),
+            "frame_ms_p90": float(np.percentile(frame_ms, 90)),
+            "frame_ms_p99": float(np.percentile(frame_ms, 99))}
+
+
+def run_frames(slam, n_frames: int, step) -> tuple:
+    """Drive step(i) for every frame with the launch counts set to 0 just
+    before and read just after; (frame ms, wall s, launches)."""
+    from multi_orbslam3_tpu_torch.frontend import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    frame_ms = []
+    t0 = time.perf_counter()
+    for i in range(n_frames):
+        tf = time.perf_counter()
+        step(i)
+        frame_ms.append((time.perf_counter() - tf) * 1e3)
+    slam.finish()
+    torch.cuda.synchronize()
+    return np.asarray(frame_ms), time.perf_counter() - t0, kernels.launch_counts()
+
+
+def finish_phase(name: str, res: dict, problems: list) -> dict:
+    emit(name, **res)
+    if problems:
+        raise AssertionError(f"{name}: " + "; ".join(problems))
+    return res
+
+
+def phase_stereo(cfg, seq, device: str = "cuda") -> tuple:
+    """bench_stereo: StereoSlam with loop closing on through the pipelined
+    stereo loop (one timed pass)."""
+    from multi_orbslam3_tpu_torch.pipeline import StereoSlam, TrackState
+    start_phase()
+    F = seq.images.shape[0]
+    slam = StereoSlam(cfg, enable_loop_closing=True, device=device)
+    frame_ms, wall, launches = run_frames(
+        slam, F, lambda i: slam.process_frame_stereo_pipelined(
+            seq.images[i], seq.images_right[i], float(seq.timestamps[i])))
+    states = [st for _, st in slam.frame_log]
+    ok_idx = [i for i, st in enumerate(states) if st == TrackState.OK]
+    ate_rmse, span = ate_of(slam, seq, ok_idx, with_scale=False)
+    lc = slam.loop_closer
+    # what a stereo frame adds to a monocular one, on the final map: one
+    # call between events (host included) and the launches of each part
+    from multi_orbslam3_tpu_torch.frontend import extractor, stereo
+    from multi_orbslam3_tpu_torch.pipeline import tracking
+    il, ir = slam.to_device(seq.images[-1]), slam.to_device(seq.images_right[-1])
+    T_cur, T_vel = slam._upload(slam.T_cur), slam._upload(slam.T_vel)
+    fl, fr = extractor.extract_features_pair(il, ir, cfg)
+    bf = cfg.camera.baseline * cfg.camera.fx
+    parts = {"extract_features": lambda: extractor.extract_features(il, cfg),
+             "extract_features_pair": lambda: extractor.extract_features_pair(il, ir, cfg),
+             "stereo_match": lambda: stereo.stereo_match(fl, fr, bf),
+             "fused_step_chained": lambda: tracking.fused_step_chained(
+                 cfg, slam.m, il, T_cur, T_vel),
+             "fused_step_stereo_chained": lambda: tracking.fused_step_stereo_chained(
+                 cfg, slam.m, il, ir, T_cur, T_vel)}
+    frame_parts = {name: {"call_ms": call_ms(fn, reps=7, warmup=2),
+                          "device_launches": device_launches(fn)}
+                   for name, fn in parts.items()}
+    res = {"frames": F, "frames_ok": len(ok_idx), "state": slam.state.name,
+           "kf_inserted": slam.stats["kf_inserted"],
+           "mp_created": slam.stats["mp_created"],
+           "loops_closed": lc.loops_closed, "ate_rmse_no_scale": ate_rmse, "span": span,
+           "ate_over_span": ate_rmse / span, **latency_stats(frame_ms, wall),
+           "frame_parts": frame_parts, "launches": launches}
+    problems = []
+    check_launches(launches, problems, k1_expected=F, both_fused=True, stereo_expected=F)
+    if slam.state != TrackState.OK:
+        problems.append(f"final state {slam.state.name}")
+    if len(states) != F or len(ok_idx) < 70:
+        problems.append(f"{len(ok_idx)} of {F} frames OK (< 70), {len(states)} logged")
+    if not ate_rmse <= 0.02 * span:
+        problems.append(f"ATE without scale alignment {ate_rmse:.4f} m > 0.02 x span "
+                        f"{span:.3f} m")
+    return finish_phase("stereo", res, problems), slam
+
+
+def phase_rgbd(cfg, seq, n_frames: int = 40, device: str = "cuda") -> dict:
+    """The stereo sequence's depth images through RGBDSlam."""
+    from multi_orbslam3_tpu_torch.pipeline import RGBDSlam, TrackState
+    start_phase()
+    slam = RGBDSlam(cfg.replace(sensor="rgbd"), enable_loop_closing=True, device=device)
+    frame_ms, wall, launches = run_frames(
+        slam, n_frames, lambda i: slam.process_frame_rgbd(
+            seq.images[i], seq.depths[i], float(seq.timestamps[i])))
+    states = [st for _, st in slam.frame_log]
+    ok_idx = [i for i, st in enumerate(states) if st == TrackState.OK]
+    ate_rmse, span = ate_of(slam, seq, ok_idx, with_scale=False)
+    res = {"frames": n_frames, "frames_ok": len(ok_idx), "state": slam.state.name,
+           "kf_inserted": slam.stats["kf_inserted"],
+           "mp_created": slam.stats["mp_created"], "ate_rmse_no_scale": ate_rmse,
+           "span": span, **latency_stats(frame_ms, wall), "launches": launches}
+    problems = []
+    check_launches(launches, problems, k1_expected=n_frames, stereo_expected=0)
+    if slam.state != TrackState.OK:
+        problems.append(f"final state {slam.state.name}")
+    if len(ok_idx) < 35:
+        problems.append(f"only {len(ok_idx)} of {n_frames} frames OK (< 35)")
+    if not ate_rmse <= 0.08 * span:
+        problems.append(f"ATE {ate_rmse:.4f} m > 0.08 x span {span:.3f} m")
+    return finish_phase("rgbd", res, problems)
+
+
+def imu_dt(seq, i: int, rate: float) -> np.ndarray:
+    dt = np.diff(seq.imu_t[i], prepend=seq.imu_t[i][0] - 1.0 / rate)
+    return np.where(seq.imu_t[i] > 0, np.maximum(dt, 0.0), 0.0)
+
+
+def inertial_timers() -> tuple:
+    from multi_orbslam3_tpu_torch.imu import preintegration
+    from multi_orbslam3_tpu_torch.opt import inertial_ba, inertial_init, vi_pose_opt
+    return (StageTimes(preintegration, ["preintegrate"]),
+            StageTimes(vi_pose_opt, ["pose_inertial_optimization"]),
+            StageTimes(inertial_ba, ["inertial_bundle_adjust"]),
+            StageTimes(inertial_init, ["inertial_init"]))
+
+
+def inertial_stage_ms(timers, n_frames: int) -> dict:
+    """{stage: calls, median ms of a call, ms per frame over the run}."""
+    out = {}
+    for t in timers:
+        for name, st in t.close().items():
+            out[name] = {"calls": st["calls"], "ms_median": st["ms_median"],
+                         "ms_per_frame": float(np.sum(st["ms"])) / n_frames}
+    return out
+
+
+@reproducible()
+def phase_mono_inertial(device: str = "cuda") -> dict:
+    """bench_mono_inertial: MonoInertialSlam with EuRoC's camera-IMU
+    extrinsics, one timed pass, scored on the final map's keyframes after
+    the init frame."""
+    from multi_orbslam3_tpu_torch import config as cfgm
+    from multi_orbslam3_tpu_torch.dataio import synthetic
+    from multi_orbslam3_tpu_torch.eval import ate
+    from multi_orbslam3_tpu_torch.pipeline import MonoInertialSlam, TrackState
+    start_phase()
+    c = euroc_scale_config().replace(imu=cfgm.IMUConfig(T_bc=EUROC_T_BC))
+    F = 90
+    seq = synthetic.make_sequence(c, n_frames=F, n_points=1200, seed=7,
+                                  trajectory="forward", imu=True, lateral=0.8,
+                                  sway_freq=0.15)
+    slam = MonoInertialSlam(c, enable_loop_closing=True, device=device)
+    timers = inertial_timers()
+    frame_ms, wall, launches = run_frames(
+        slam, F, lambda i: slam.process_frame_imu(
+            seq.images[i], float(seq.timestamps[i]), seq.imu_acc[i], seq.imu_gyro[i],
+            imu_dt(seq, i, c.imu.rate_hz)))
+    stages = inertial_stage_ms(timers, F)
+    # the launches of one frame's preintegration (a full window of samples)
+    from multi_orbslam3_tpu_torch.imu import preintegration
+    S = c.imu.max_samples_per_frame
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    acc, gyro = (torch.randn((S, 3), generator=gen, device=device) * k for k in (1.0, 0.1))
+    dt = torch.full((S,), 1.0 / c.imu.rate_hz, device=device)
+    zero3 = torch.zeros(3, device=device)
+    stages["preintegrate"]["device_launches"] = device_launches(
+        lambda: preintegration.preintegrate(acc, gyro, dt, zero3, zero3, slam.calib))
+    states = [st for _, st in slam.frame_log]
+    init_f = slam.stats.get("imu_init_frame")
+    ts0 = float(seq.timestamps[0])
+    frames, poses = [], []
+    for t, T in slam.keyframe_trajectory():
+        fr = int(round((t - ts0) * c.camera.fps))
+        if init_f is not None and init_f <= fr < F:
+            frames.append(fr)
+            poses.append(T)
+    ate_rmse = span = None
+    if len(frames) >= 2:
+        g = ate.camera_centers(seq.T_cw[frames])
+        span = float(np.linalg.norm(g.max(0) - g.min(0)))
+        ate_rmse = float(ate.ate_rmse(ate.camera_centers(np.stack(poses)), g))
+    scale = slam.stats.get("imu_init_scale")
+    res = {"frames": F, "frames_ok": sum(st == TrackState.OK for st in states),
+           "state": slam.state.name, "imu_initialized": bool(slam.imu_initialized),
+           "inertial_ready": bool(slam.inertial_ready), "imu_init_frame": init_f,
+           "imu_init_scale": scale, "kf_inserted": slam.stats["kf_inserted"],
+           "kf_evaluated": len(frames), "ate_rmse": ate_rmse, "span": span,
+           **latency_stats(frame_ms, wall), "stages": stages, "launches": launches}
+    problems = []
+    check_launches(launches, problems, k1_expected=F, stereo_expected=0)
+    if not slam.imu_initialized:
+        problems.append("the IMU was never initialized")
+    elif not 0.05 < scale < 50.0:
+        problems.append(f"init scale {scale}")
+    if len(frames) < 8:
+        problems.append(f"only {len(frames)} keyframes after the init frame (< 8)")
+    elif not ate_rmse <= 0.1 * span:
+        problems.append(f"keyframe ATE {ate_rmse:.4f} m > 0.1 x span {span:.3f} m")
+    return finish_phase("mono_inertial", res, problems)
+
+
+@reproducible()
+def phase_stereo_inertial(device: str = "cuda") -> dict:
+    """tests/test_stereo_inertial.py's drill at bench width (a tilted,
+    offset T_bc; 50 frames), then RGBDInertialSlam on 20 frames of it."""
+    from multi_orbslam3_tpu_torch import config as cfgm
+    from multi_orbslam3_tpu_torch.dataio import synthetic
+    from multi_orbslam3_tpu_torch.geometry import so3
+    from multi_orbslam3_tpu_torch.pipeline import (RGBDInertialSlam, StereoInertialSlam,
+                                                   TrackState)
+    start_phase()
+    T_bc = np.eye(4)
+    T_bc[:3, :3] = so3.exp(torch.tensor([0.3, -0.2, 0.25])).numpy()
+    T_bc[:3, 3] = [0.05, -0.03, 0.02]
+    c = euroc_scale_config(baseline=0.11).replace(
+        sensor="imu_stereo", imu=cfgm.IMUConfig(T_bc=tuple(float(x) for x in T_bc.reshape(-1))))
+    F = 50
+    seq = synthetic.make_sequence(c, n_frames=F, n_points=1200, seed=11,
+                                  trajectory="forward", imu=True, lateral=0.6,
+                                  sway_freq=0.15)
+    slam = StereoInertialSlam(c, enable_loop_closing=True, device=device)
+    timers = inertial_timers()
+    frame_ms, wall, launches = run_frames(
+        slam, F, lambda i: slam.process_frame_stereo_imu(
+            seq.images[i], seq.images_right[i], float(seq.timestamps[i]),
+            seq.imu_acc[i], seq.imu_gyro[i], imu_dt(seq, i, c.imu.rate_hz)))
+    stages = inertial_stage_ms(timers, F)
+    states = [st for _, st in slam.frame_log]
+    ok_idx = [i for i, st in enumerate(states) if st == TrackState.OK]
+    ate_rmse, span = ate_of(slam, seq, list(range(len(states))), with_scale=False)
+    scale = slam.stats.get("imu_init_scale")
+    # RGB-D-inertial on the same sequence's depth images
+    n_rgbd = 20
+    rgbd = RGBDInertialSlam(c.replace(sensor="imu_rgbd"), enable_loop_closing=True,
+                            device=device)
+    _, wall_rgbd, launches_rgbd = run_frames(
+        rgbd, n_rgbd, lambda i: rgbd.process_frame_rgbd_imu(
+            seq.images[i], seq.depths[i], float(seq.timestamps[i]),
+            seq.imu_acc[i], seq.imu_gyro[i], imu_dt(seq, i, c.imu.rate_hz)))
+    rgbd_ok = sum(st == TrackState.OK for _, st in rgbd.frame_log)
+    res = {"frames": F, "frames_ok": len(ok_idx), "state": slam.state.name,
+           "imu_initialized": bool(slam.imu_initialized),
+           "imu_init_frame": slam.stats.get("imu_init_frame"), "imu_init_scale": scale,
+           "kf_inserted": slam.stats["kf_inserted"], "ate_rmse_no_scale": ate_rmse,
+           "span": span, "v_norm": float(np.linalg.norm(slam.v_cur)),
+           **latency_stats(frame_ms, wall), "stages": stages,
+           "rgbd_inertial": {"frames": n_rgbd, "frames_ok": rgbd_ok,
+                             "state": rgbd.state.name, "wall_s": wall_rgbd,
+                             "imu_initialized": bool(rgbd.imu_initialized),
+                             "launches": launches_rgbd},
+           "launches": {k: v + launches_rgbd[k] for k, v in launches.items()}}
+    problems = []
+    check_launches(launches, problems, k1_expected=F, stereo_expected=F)
+    check_launches(launches_rgbd, problems, k1_expected=n_rgbd, stereo_expected=0)
+    if not slam.imu_initialized:
+        problems.append("the IMU was never initialized")
+    elif not abs(scale - 1.0) < 1e-5:
+        problems.append(f"the fixed-scale init re-scaled the map: {scale}")
+    if not ate_rmse <= 0.1 * max(span, 1.0):
+        problems.append(f"ATE {ate_rmse:.4f} m > 0.1 x max(span {span:.3f}, 1)")
+    if not np.isfinite(slam.v_cur).all():
+        problems.append("non-finite velocity")
+    if rgbd.state != TrackState.OK:
+        problems.append(f"RGBDInertialSlam ended {rgbd.state.name}")
+    return finish_phase("stereo_inertial", res, problems)
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
     from multi_orbslam3_tpu_torch.dataio import synthetic
     cfg = euroc_scale_config()
+    stereo_cfg = euroc_scale_config(baseline=0.11).replace(sensor="stereo")
     t0 = time.perf_counter()
     seq = synthetic.make_sequence(cfg, n_frames=120, n_points=1500, seed=5,
                                   trajectory="forward")
+    stereo_seq = synthetic.make_sequence(stereo_cfg, n_frames=80, n_points=1200, seed=9,
+                                         trajectory="forward")
     emit("sequence", frames=int(seq.images.shape[0]),
+         stereo_frames=int(stereo_seq.images.shape[0]),
          shape=list(seq.images.shape[1:]),
          seconds=round(time.perf_counter() - t0, 3))
-    frame0 = np.clip(np.round(seq.images[0]), 0, 255).astype(np.uint8)
+    as_u8 = lambda im: np.clip(np.round(im), 0, 255).astype(np.uint8)
     start_phase()
-    rows = phase_kernels(frame0, cfg, card)
-    res, slam = phase_slice(cfg, seq, loop_closing=True)
-    res_off, _ = phase_slice(cfg, seq, loop_closing=False)
-    res_reloc = phase_relocalize(cfg, seq, slam)
-    res_atlas = phase_atlas_loop()
-    phase_sync_free(cfg, slam, seq)
-    paths = (res, res_off, res_reloc, res_atlas)
+    seconds = {}
+
+    def timed(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = round(time.perf_counter() - t, 3)
+        return out
+
+    rows = timed("kernels", phase_kernels, as_u8(stereo_seq.images[0]),
+                 as_u8(stereo_seq.images_right[0]), cfg, card)
+    res, slam = timed("slice", phase_slice, cfg, seq, loop_closing=True)
+    res_off, _ = timed("slice_lc_off", phase_slice, cfg, seq, loop_closing=False)
+    res_reloc = timed("relocalize", phase_relocalize, cfg, seq, slam)
+    res_atlas = timed("atlas_loop", phase_atlas_loop)
+    res_stereo, stereo_slam = timed("stereo", phase_stereo, stereo_cfg, stereo_seq)
+    res_rgbd = timed("rgbd", phase_rgbd, stereo_cfg, stereo_seq)
+    res_mi = timed("mono_inertial", phase_mono_inertial)
+    res_si = timed("stereo_inertial", phase_stereo_inertial)
+    timed("sync_free", phase_sync_free, cfg, slam, seq, stereo_cfg, stereo_slam, stereo_seq)
+    emit("total", seconds_by_phase=seconds,
+         total_s=round(time.perf_counter() - T_START, 3))
+    paths = (res, res_off, res_reloc, res_atlas, res_stereo, res_rgbd, res_mi, res_si)
     entries = []
     for name, k in KERNELS.items():
         variants = []

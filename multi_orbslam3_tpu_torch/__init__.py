@@ -5,12 +5,22 @@ counterpart is found under the same path:
 
 - ``geometry``  — SO3/SE3 ops, pinhole/radtan/KB8 cameras, triangulation.
 - ``frontend``  — pyramid, FAST, ORB, extraction, Hamming matching; the
-                  two hand-written Hopper kernels live behind
+                  hand-written Hopper kernels live behind
                   ``frontend/kernels.py`` (sources in ``csrc/``).
 - ``map``       — the fixed-capacity MapState and its functional updates.
-- ``opt``       — robust kernels, pose-only optimisation, windowed BA.
-- ``pipeline``  — tracking, two-view initializer, local mapping, MonoSlam.
-- ``interop``   — numpy in/out of MapState/FrameFeatures (parity tests).
+- ``imu``       — on-manifold IMU preintegration.
+- ``opt``       — robust kernels, pose-only optimisation (mono and stereo
+                  rows), windowed BA, PnP, Sim3, the pose graph, and the
+                  inertial solvers (VI pose optimisation, inertial
+                  initialisation, visual-inertial window BA).
+- ``pipeline``  — tracking, two-view initializer, local mapping, loop
+                  closing, and the six sensor modes: ``MonoSlam``,
+                  ``StereoSlam``, ``RGBDSlam``, ``MonoInertialSlam``,
+                  ``StereoInertialSlam``, ``RGBDInertialSlam``.
+- ``dataio``    — TUM trajectories and map checkpoints (the .npz layout of
+                  the JAX package, readable by both).
+- ``interop``   — numpy in/out of MapState, FrameFeatures, StereoDepth,
+                  Preintegrated (parity tests).
 
 - ``config``, ``dataio.synthetic``, ``eval.ate`` — the port's own copies of
                   the JAX package's numpy-only modules.

@@ -7,7 +7,7 @@
 // are the int32 bit patterns of the JAX package's uint32 descriptor words.
 // Every result equals the plain version exactly (integers and comparisons).
 //
-// Three entry points:
+// Four entry points:
 //   mo3_hamming_matrix               writes the (n, m) int32 matrix;
 //   mo3_hamming_best_two_valid       masks by row and column validity and
 //                                    keeps, per row, the first best column,
@@ -17,7 +17,12 @@
 //                                    around a projected position and a
 //                                    pyramid-level window, computed in the
 //                                    kernel from per-row and per-column
-//                                    vectors, and keeps the row results.
+//                                    vectors, and keeps the row results;
+//   mo3_hamming_best_two_stereo      masks a left (rows) against a right
+//                                    (columns) rectified feature set by
+//                                    validity, epipolar row, disparity range
+//                                    and pyramid level, and keeps the row
+//                                    results.
 // No caller of the port wants the matrix itself: the matchers reduce it to
 // three numbers a row, so the fused entry points never write n x m.
 //
@@ -60,7 +65,9 @@
 // The radius test repeats the plain version's float32 arithmetic,
 // (dx*dx) + (dy*dy) <= r*r with each product and the sum rounded on its
 // own: __fmul_rn / __fadd_rn keep nvcc from contracting them into an FMA,
-// which would flip pairs within one ulp of the radius.
+// which would flip pairs within one ulp of the radius. The stereo test only
+// subtracts and compares: |vL - vR| <= tol with the per-row tolerance handed
+// in (no pow here), and min < uL - uR < max.
 //
 // Nothing is allocated here; the wrappers own outputs and scratch.
 
@@ -119,7 +126,12 @@ __device__ __forceinline__ int hamming256(const uint4& alo, const uint4& ahi,
          __popc(ahi.z ^ bhi.z) + __popc(ahi.w ^ bhi.w);
 }
 
-// One column of d2 as a thread holds it, with its projection data.
+// The mask a fused kernel applies besides validity.
+constexpr int MASK_VALID = 0;    // none; also keeps the column argmin
+constexpr int MASK_PROJ = 1;     // radius around a projection + level window
+constexpr int MASK_STEREO = 2;   // epipolar row + disparity range + level window
+
+// One column of d2 as a thread holds it, with its position and level.
 struct Column {
   uint4 lo, hi;
   float u, v;
@@ -127,12 +139,12 @@ struct Column {
   unsigned long long key_seen;   // the column's argmin key when it was loaded
 };
 
-template <bool PROJ>
+template <int MASK>
 __device__ __forceinline__ void load_column(const MatchArgs& a, int j, Column& c) {
   const uint4* q = reinterpret_cast<const uint4*>(a.d2 + (size_t)j * WORDS);
   c.lo = __ldg(q);
   c.hi = __ldg(q + 1);
-  if (PROJ) {
+  if (MASK != MASK_VALID) {
     const float2 uv = __ldg(reinterpret_cast<const float2*>(a.uv2) + j);
     c.u = uv.x;
     c.v = uv.y;
@@ -142,12 +154,13 @@ __device__ __forceinline__ void load_column(const MatchArgs& a, int j, Column& c
   }
 }
 
-template <bool PROJ>
-__global__ void __launch_bounds__(FT_THREADS, PROJ ? 2 : 3) best_two_popc_kernel(MatchArgs a) {
+template <int MASK>
+__global__ void __launch_bounds__(FT_THREADS, MASK != MASK_VALID ? 2 : 3) best_two_popc_kernel(MatchArgs a) {
   __shared__ uint4 s_lo[FT_ROWS];
   __shared__ uint4 s_hi[FT_ROWS];
   __shared__ int s_valid[FT_ROWS];
-  __shared__ float4 s_proj[FT_ROWS];     // u, v, radius^2, level (as bits)
+  // u, v, radius^2 (stereo: the row tolerance), level (as bits)
+  __shared__ float4 s_proj[FT_ROWS];
   __shared__ int s_red[FT_ROWS][FT_WARPS][3];
 
   const int tid = threadIdx.x;
@@ -163,10 +176,11 @@ __global__ void __launch_bounds__(FT_THREADS, PROJ ? 2 : 3) best_two_popc_kernel
       const uint4* p = reinterpret_cast<const uint4*>(a.d1 + (size_t)row * WORDS);
       s_lo[tid] = p[0];
       s_hi[tid] = p[1];
-      if (PROJ) {
+      if (MASK != MASK_VALID) {
         const float r = a.radius ? a.radius[row] : a.radius_scalar;
         s_proj[tid] = make_float4(a.uv1[2 * (size_t)row], a.uv1[2 * (size_t)row + 1],
-                                  __fmul_rn(r, r), __int_as_float(a.lev1[row]));
+                                  MASK == MASK_PROJ ? __fmul_rn(r, r) : r,
+                                  __int_as_float(a.lev1[row]));
       }
     }
   }
@@ -194,31 +208,38 @@ __global__ void __launch_bounds__(FT_THREADS, PROJ ? 2 : 3) best_two_popc_kernel
   // one memory latency at most, also where few columns are valid.
   Column cur = {}, next = {};
   bool cur_valid = tid < a.m && a.valid2[tid];
-  if (cur_valid) load_column<PROJ>(a, tid, cur);
+  if (cur_valid) load_column<MASK>(a, tid, cur);
   bool next_valid = tid + FT_THREADS < a.m && a.valid2[tid + FT_THREADS];
   for (int j = tid; j < a.m; j += FT_THREADS) {
-    if (next_valid) load_column<PROJ>(a, j + FT_THREADS, next);
+    if (next_valid) load_column<MASK>(a, j + FT_THREADS, next);
     const bool after_valid = j + 2 * FT_THREADS < a.m && a.valid2[j + 2 * FT_THREADS];
     if (cur_valid) {
       int col_best = BIG, col_row = 0;
 #pragma unroll
       for (int r = 0; r < FT_ROWS; ++r) {
         if (!s_valid[r]) continue;              // uniform over the block
-        if (PROJ) {
+        if (MASK == MASK_PROJ) {
           const float4 p = s_proj[r];
           const float dx = __fsub_rn(p.x, cur.u);
           const float dy = __fsub_rn(p.y, cur.v);
           const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
           if (!(d2 <= p.z) || abs(cur.lev - __float_as_int(p.w)) > a.level_slack) continue;
         }
+        if (MASK == MASK_STEREO) {
+          const float4 p = s_proj[r];
+          const float dv = fabsf(__fsub_rn(p.y, cur.v));
+          const float disp = __fsub_rn(p.x, cur.u);
+          if (!(dv <= p.z) || !(disp > a.disp_min) || !(disp < a.disp_max) ||
+              abs(cur.lev - __float_as_int(p.w)) > a.level_slack) continue;
+        }
         const int d = hamming256(s_lo[r], s_hi[r], cur.lo, cur.hi);
         stat_update(best[r], idx[r], second[r], d, j);
-        if (!PROJ && d < col_best) {            // rows ascend: first row wins
+        if (MASK == MASK_VALID && d < col_best) {            // rows ascend: first row wins
           col_best = d;
           col_row = row0 + r;
         }
       }
-      if (!PROJ && col_best < BIG)
+      if (MASK == MASK_VALID && col_best < BIG)
         col_key_offer(a.col_key, j, col_best, col_row, cur.key_seen);
     }
     cur = next;
@@ -251,10 +272,10 @@ __global__ void __launch_bounds__(FT_THREADS, PROJ ? 2 : 3) best_two_popc_kernel
   }
 }
 
-template <bool PROJ>
+template <int MASK>
 int launch_best_two_popc(const MatchArgs& a, void* stream) {
   const int grid = (a.n + FT_ROWS - 1) / FT_ROWS;
-  best_two_popc_kernel<PROJ><<<grid, FT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  best_two_popc_kernel<MASK><<<grid, FT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -277,7 +298,7 @@ extern "C" int mo3_hamming_best_two_valid(
   a.d1 = d1; a.valid1 = valid1; a.n = n;
   a.d2 = d2; a.valid2 = valid2; a.m = m;
   a.idx = idx; a.best = best; a.second = second; a.col_key = col_key;
-  return launch_best_two_popc<false>(a, stream);
+  return launch_best_two_popc<MASK_VALID>(a, stream);
 }
 
 extern "C" int mo3_hamming_best_two_projection(
@@ -292,5 +313,21 @@ extern "C" int mo3_hamming_best_two_projection(
   a.uv1 = uv1; a.radius = radius; a.radius_scalar = radius_scalar; a.lev1 = lev1;
   a.uv2 = uv2; a.lev2 = lev2; a.level_slack = level_slack;
   a.idx = idx; a.best = best; a.second = second;
-  return launch_best_two_popc<true>(a, stream);
+  return launch_best_two_popc<MASK_PROJ>(a, stream);
+}
+
+extern "C" int mo3_hamming_best_two_stereo(
+    const int* d1, const float* uv1, const unsigned char* valid1,
+    const float* row_tol, const int* lev1, int n, const int* d2,
+    const float* uv2, const unsigned char* valid2, const int* lev2, int m,
+    float disp_min, float disp_max, int level_slack, long long* idx, int* best,
+    int* second, void* stream) {
+  MatchArgs a = {};
+  a.d1 = d1; a.valid1 = valid1; a.n = n;
+  a.d2 = d2; a.valid2 = valid2; a.m = m;
+  a.uv1 = uv1; a.radius = row_tol; a.lev1 = lev1;
+  a.uv2 = uv2; a.lev2 = lev2; a.level_slack = level_slack;
+  a.disp_min = disp_min; a.disp_max = disp_max;
+  a.idx = idx; a.best = best; a.second = second;
+  return launch_best_two_popc<MASK_STEREO>(a, stream);
 }

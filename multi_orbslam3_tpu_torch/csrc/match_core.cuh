@@ -28,14 +28,17 @@ struct MatchArgs {
   const int* d2;                 // (m, 8)
   const unsigned char* valid2;   // (m,) bool
   int m;
-  // projection variant only: the radius and level window
-  const float* uv1;              // (n, 2) projected position of each row
-  const float* radius;           // (n,) per-row radius, or null
+  // projection and stereo variants: positions, levels and the row's
+  // radius (stereo: its epipolar row tolerance)
+  const float* uv1;              // (n, 2) position of each row
+  const float* radius;           // (n,) per-row radius / tolerance, or null
   float radius_scalar;           // the radius of every row when radius is null
   const int* lev1;               // (n,) predicted level
   const float* uv2;              // (m, 2)
   const int* lev2;               // (m,)
   int level_slack;
+  // stereo variant only: disp_min < u1 - u2 < disp_max
+  float disp_min, disp_max;
   // per-row results
   long long* idx;                // (n,)
   int* best;                     // (n,)

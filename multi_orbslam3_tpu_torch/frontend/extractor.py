@@ -99,15 +99,34 @@ def extract_features(img: torch.Tensor, config) -> FrameFeatures:
     """ORB features of one (H, W) grayscale image in [0, 255] (uint8 or
     float32, on the device the features should live on)."""
     o = config.orb
-    c = config.camera
-    img = img.float()
-    fast_hi, fast_lo = o.fast_threshold, o.fast_threshold_min
-    counts = level_feature_counts(o.n_features, o.n_levels, o.scale_factor)
-    levels = pyramid.build_pyramid(img, o.n_levels, o.scale_factor)
-
+    levels = pyramid.build_pyramid(img.float(), o.n_levels, o.scale_factor)
     # K1 once for the whole pyramid
     scores = kernels.fast_score_nms_levels([im.contiguous() for im in levels],
-                                           fast_lo)
+                                           o.fast_threshold_min)
+    return _features_from_scores(levels, scores, config)
+
+
+def extract_features_pair(img_l: torch.Tensor, img_r: torch.Tensor,
+                          config) -> Tuple[FrameFeatures, FrameFeatures]:
+    """ORB features of the two images of a stereo frame: the same results
+    as two ``extract_features`` calls, with K1 launched once for the levels
+    of both pyramids."""
+    o = config.orb
+    lv_l = pyramid.build_pyramid(img_l.float(), o.n_levels, o.scale_factor)
+    lv_r = pyramid.build_pyramid(img_r.float(), o.n_levels, o.scale_factor)
+    scores = kernels.fast_score_nms_levels(
+        [im.contiguous() for im in lv_l + lv_r], o.fast_threshold_min)
+    return (_features_from_scores(lv_l, scores[:len(lv_l)], config),
+            _features_from_scores(lv_r, scores[len(lv_l):], config))
+
+
+def _features_from_scores(levels, scores, config) -> FrameFeatures:
+    """Everything after K1: per-level selection, orientation, BRIEF, the
+    fixed-size batch and undistortion."""
+    o = config.orb
+    c = config.camera
+    fast_hi = o.fast_threshold
+    counts = level_feature_counts(o.n_features, o.n_levels, o.scale_factor)
 
     uvs, resps, lvls, angs, descs, valids = [], [], [], [], [], []
     strong_bonus = 1e6
@@ -151,7 +170,7 @@ def extract_features(img: torch.Tensor, config) -> FrameFeatures:
         desc = F.pad(desc, (0, 0, 0, padn))
         valid = F.pad(valid, (0, padn))
 
-    K, dist = _camera_consts(c, img.device)
+    K, dist = _camera_consts(c, uv.device)
     if c.model == "kb8":
         # fisheye keypoints are re-projected onto the ideal pinhole K; the
         # far periphery (bearing z <= 0.3) is dropped

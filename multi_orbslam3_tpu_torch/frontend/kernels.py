@@ -11,8 +11,10 @@
   best column, best and second-best distance, per column the first best
   row) and ``hamming_best_two_projection`` (validity, a per-row radius
   around a projected position and a pyramid-level window; the row
-  results). ``hamming_best_two_valid`` has two inner products: ``__popc``
-  (``csrc/hamming.cu``) and the 1-bit tensor-core MMA
+  results) and ``hamming_best_two_stereo`` (validity, epipolar row,
+  disparity range and pyramid level between a left and a right feature
+  set; the row results). ``hamming_best_two_valid`` has two inner products:
+  ``__popc`` (``csrc/hamming.cu``) and the 1-bit tensor-core MMA
   (``csrc/hamming_mma.cu``).
 
 Dispatch is by the tensor's device only: a CPU tensor takes the plain
@@ -30,6 +32,7 @@ Each wrapper counts its launches (``launch_counts()``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -41,6 +44,7 @@ import types
 from pathlib import Path
 from typing import List, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from multi_orbslam3_tpu_torch.frontend import fast
@@ -59,7 +63,7 @@ _lib_handle = None
 _lib_lock = threading.Lock()
 _LAUNCHES = {"fast_score_nms_levels": 0, "hamming_matrix": 0,
              "hamming_best_two_valid_popc": 0, "hamming_best_two_valid_mma": 0,
-             "hamming_best_two_projection": 0}
+             "hamming_best_two_projection": 0, "hamming_best_two_stereo": 0}
 
 
 def _nvcc() -> str:
@@ -126,7 +130,8 @@ def _lib():
                 hamming_matrix=ham_so.mo3_hamming_matrix,
                 hamming_best_two_valid_popc=ham_so.mo3_hamming_best_two_valid,
                 hamming_best_two_valid_mma=mma_so.mo3_hamming_best_two_valid_mma,
-                hamming_best_two_projection=ham_so.mo3_hamming_best_two_projection)
+                hamming_best_two_projection=ham_so.mo3_hamming_best_two_projection,
+                hamming_best_two_stereo=ham_so.mo3_hamming_best_two_stereo)
             fns.fast_score_nms_levels.argtypes = [vp, vp, vp, vp, ci, cf, vp]
             fns.hamming_matrix.argtypes = [vp, vp, vp, ci, ci, vp]
             valid_args = [vp, vp, ci, vp, vp, ci, vp, vp, vp, vp, vp]
@@ -134,6 +139,8 @@ def _lib():
             fns.hamming_best_two_valid_mma.argtypes = valid_args
             fns.hamming_best_two_projection.argtypes = [
                 vp, vp, vp, vp, cf, vp, ci, vp, vp, vp, vp, ci, ci, vp, vp, vp, vp]
+            fns.hamming_best_two_stereo.argtypes = [
+                vp, vp, vp, vp, vp, ci, vp, vp, vp, vp, ci, cf, cf, ci, vp, vp, vp, vp]
             for fn in vars(fns).values():
                 fn.restype = ci
             _lib_handle = fns
@@ -418,6 +425,88 @@ def hamming_best_two_projection(mp_desc: torch.Tensor, proj_uv: torch.Tensor,
             feat_desc.data_ptr(), feat_uv.data_ptr(), feat_valid.data_ptr(),
             feat_level.data_ptr(), m, int(level_slack), idx.data_ptr(),
             best.data_ptr(), second.data_ptr())
+    return idx, best, second
+
+
+STEREO_MIN_DISPARITY = 0.3
+STEREO_LEVEL_SLACK = 1
+
+
+@functools.lru_cache(maxsize=8)
+def _stereo_tol_table(row_tol: float, device: torch.device) -> torch.Tensor:
+    """row_tol * 1.2^level for levels 0..31 in float32: the power taken in
+    float64 on float32(1.2) and rounded once, which is what the JAX package's
+    float32 ``power`` gives on every level, whatever the device's powf."""
+    table = np.float32(row_tol) * (
+        np.float64(np.float32(1.2)) ** np.arange(32)).astype(np.float32)
+    return torch.from_numpy(table).to(device)
+
+
+def stereo_row_tolerance(level: torch.Tensor, row_tol: float) -> torch.Tensor:
+    """(N,) float32 epipolar row tolerance of left features at `level`."""
+    table = _stereo_tol_table(float(row_tol), level.device)
+    return table[torch.clamp(level, 0, 31).long()]
+
+
+def hamming_best_two_stereo_ref(descL, uvL, validL, levelL, tol, descR, uvR,
+                                validR, levelR, max_disparity: float):
+    """Plain version of the stereo-masked fused match: the (N, M) epipolar
+    row, disparity, level and validity mask, the matrix, then best_two."""
+    f32 = dict(dtype=torch.float32, device=uvL.device)
+    dv = torch.abs(uvL[:, None, 1] - uvR[None, :, 1])
+    disp = uvL[:, None, 0] - uvR[None, :, 0]
+    lv_ok = torch.abs(levelL[:, None] - levelR[None, :]) <= STEREO_LEVEL_SLACK
+    mask = ((dv <= tol[:, None])
+            & (disp > torch.tensor(STEREO_MIN_DISPARITY, **f32))
+            & (disp < torch.tensor(max_disparity, **f32))
+            & lv_ok & validL[:, None] & validR[None, :])
+    return best_two(torch.where(mask, hamming_matrix_ref(descL, descR), BIG))
+
+
+def hamming_best_two_stereo(descL: torch.Tensor, uvL: torch.Tensor,
+                            validL: torch.Tensor, levelL: torch.Tensor,
+                            tol: torch.Tensor, descR: torch.Tensor,
+                            uvR: torch.Tensor, validR: torch.Tensor,
+                            levelR: torch.Tensor, max_disparity: float):
+    """Hamming match of N left features (rows) against M right features
+    (columns) of a rectified stereo pair under the mask: both valid,
+    |vL - vR| <= tol ((N,) float32, the row's epipolar tolerance),
+    0.3 < uL - uR < max_disparity (float32 arithmetic) and
+    |levelL - levelR| <= 1. Returns per row (idx int64, best int32, second
+    int32) as hamming_best_two_valid does.
+
+    CPU: plain version; CUDA: the fused kernel, which computes the mask
+    from the per-row and per-column vectors and writes no N x M."""
+    n, m = descL.shape[0], descR.shape[0]
+    if n == 0 or m == 0:
+        dev = descL.device
+        return (torch.zeros(n, dtype=torch.int64, device=dev),
+                torch.full((n,), BIG, dtype=torch.int32, device=dev),
+                torch.full((n,), BIG, dtype=torch.int32, device=dev))
+    if _all_cpu(descL, uvL, validL, levelL, tol, descR, uvR, validR, levelR):
+        return hamming_best_two_stereo_ref(descL, uvL, validL, levelL, tol,
+                                           descR, uvR, validR, levelR,
+                                           max_disparity)
+    name = "hamming_best_two_stereo"
+    _check_cuda(name, descL, torch.int32, (n, 8))
+    _check_cuda(name, uvL, torch.float32, (n, 2))
+    _check_cuda(name, validL, torch.bool, (n,))
+    _check_cuda(name, levelL, torch.int32, (n,))
+    _check_cuda(name, tol, torch.float32, (n,))
+    _check_cuda(name, descR, torch.int32, (m, 8))
+    _check_cuda(name, uvR, torch.float32, (m, 2))
+    _check_cuda(name, validR, torch.bool, (m,))
+    _check_cuda(name, levelR, torch.int32, (m,))
+    descL, descR, uvR = _aligned16(descL), _aligned16(descR), _aligned16(uvR)
+    dev = descL.device
+    idx = torch.empty(n, dtype=torch.int64, device=dev)
+    best = torch.empty(n, dtype=torch.int32, device=dev)
+    second = torch.empty(n, dtype=torch.int32, device=dev)
+    _launch(name, descL.data_ptr(), uvL.data_ptr(), validL.data_ptr(),
+            tol.data_ptr(), levelL.data_ptr(), n, descR.data_ptr(),
+            uvR.data_ptr(), validR.data_ptr(), levelR.data_ptr(), m,
+            STEREO_MIN_DISPARITY, float(max_disparity), STEREO_LEVEL_SLACK,
+            idx.data_ptr(), best.data_ptr(), second.data_ptr())
     return idx, best, second
 
 

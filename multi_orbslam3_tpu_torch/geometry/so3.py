@@ -102,3 +102,30 @@ def normalize_rotation(R: torch.Tensor) -> torch.Tensor:
     for _ in range(2):
         R = 1.5 * R - 0.5 * (R @ R.transpose(-1, -2)) @ R
     return R
+
+
+def to_quaternion(R: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 4) quaternion (w, x, y, z), branch-free Shepperd."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    qw = 0.5 * torch.sqrt(torch.clamp(1.0 + m00 + m11 + m22, min=_EPS))
+    qx = 0.5 * torch.sqrt(torch.clamp(1.0 + m00 - m11 - m22, min=_EPS))
+    qy = 0.5 * torch.sqrt(torch.clamp(1.0 - m00 + m11 - m22, min=_EPS))
+    qz = 0.5 * torch.sqrt(torch.clamp(1.0 - m00 - m11 + m22, min=_EPS))
+    qx = qx * torch.sign(m21 - m12 + _EPS * torch.sign(qx + _EPS))
+    qy = qy * torch.sign(m02 - m20 + _EPS * torch.sign(qy + _EPS))
+    qz = qz * torch.sign(m10 - m01 + _EPS * torch.sign(qz + _EPS))
+    q = torch.stack([qw, qx, qy, qz], dim=-1)
+    return q / (torch.linalg.norm(q, dim=-1, keepdim=True) + _EPS)
+
+
+def from_quaternion(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) (w, x, y, z) -> (..., 3, 3)."""
+    q = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + _EPS)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+    ], dim=-2)

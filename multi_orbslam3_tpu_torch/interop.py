@@ -1,5 +1,5 @@
 """Numpy in and out of the port's MapState, FrameFeatures, Vocabulary,
-KeyframeDatabase and Sim3.
+KeyframeDatabase, Sim3, StereoDepth and Preintegrated.
 
 The arrays are keyed by the JAX package's field names, so state built by
 one package can be carried to the other. uint32 descriptor and centroid
@@ -17,7 +17,9 @@ import torch
 from multi_orbslam3_tpu_torch.bow import vocabulary as vocm
 from multi_orbslam3_tpu_torch.bow.database import KeyframeDatabase
 from multi_orbslam3_tpu_torch.frontend.extractor import FrameFeatures
+from multi_orbslam3_tpu_torch.frontend.stereo import StereoDepth
 from multi_orbslam3_tpu_torch.geometry.sim3 import Sim3
+from multi_orbslam3_tpu_torch.imu.preintegration import Preintegrated
 from multi_orbslam3_tpu_torch.map.mapstate import MapState
 
 _DESC_FIELDS = ("kf_desc", "mp_desc", "desc")
@@ -74,3 +76,22 @@ def sim3_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> Sim3:
 
 def sim3_to_numpy(S: Sim3) -> Dict[str, np.ndarray]:
     return {f: _to_numpy(f, getattr(S, f)) for f in Sim3._fields}
+
+
+def stereo_depth_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> StereoDepth:
+    return StereoDepth(**{f: _to_torch(f, d[f], device)
+                          for f in StereoDepth._fields})
+
+
+def stereo_depth_to_numpy(sd: StereoDepth) -> Dict[str, np.ndarray]:
+    return {f: _to_numpy(f, getattr(sd, f)) for f in StereoDepth._fields}
+
+
+def preintegrated_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> Preintegrated:
+    """One window, or a stack of windows with a leading axis."""
+    return Preintegrated(**{f: _to_torch(f, d[f], device)
+                            for f in Preintegrated._fields})
+
+
+def preintegrated_to_numpy(p: Preintegrated) -> Dict[str, np.ndarray]:
+    return {f: _to_numpy(f, getattr(p, f)) for f in Preintegrated._fields}

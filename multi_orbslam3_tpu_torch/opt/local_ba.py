@@ -6,31 +6,35 @@ of multi_orbslam3_tpu/opt/local_ba.py):
     (3Pw x 6Kw) matmul; dc = solve(S, -rhs); dp = -C^-1 (b_p + E^T dc).
 
 Levenberg damping with step rejection over a fixed number of iterations;
-no value is read back to the host. Monocular edges only.
+no value is read back to the host. Stereo observations (u_r >= 0) add a
+third residual row and take the 3-dof chi2 threshold.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from multi_orbslam3_tpu_torch.geometry import camera as cam
 from multi_orbslam3_tpu_torch.geometry import se3
 from multi_orbslam3_tpu_torch.opt import robust
-from multi_orbslam3_tpu_torch.opt.pose_opt import point_jacobian_se3
+from multi_orbslam3_tpu_torch.opt.pose_opt import (point_jacobian_se3,
+                                                  projection_terms)
 
 
 class BAObservations(NamedTuple):
     """Fixed-capacity observation list: window-local keyframe kf (O,),
     window-local landmark pt (O,), measured uv (O, 2), information
-    inv_sigma2 (O,), mask valid (O,)."""
+    inv_sigma2 (O,), mask valid (O,), and optionally the stereo right-u
+    u_r (O,), -1 on monocular observations."""
 
     kf: torch.Tensor
     pt: torch.Tensor
     uv: torch.Tensor
     inv_sigma2: torch.Tensor
     valid: torch.Tensor
+    u_r: Optional[torch.Tensor] = None
 
 
 class BAResult(NamedTuple):
@@ -40,11 +44,10 @@ class BAResult(NamedTuple):
     chi2: torch.Tensor      # () mean inlier chi2
 
 
-def _obs_terms(poses, points, obs: BAObservations, K: cam.PinholeK):
+def _obs_terms(poses, points, obs: BAObservations, K: cam.PinholeK, bf=0.0):
     T = poses[obs.kf]
     p_c = se3.apply(T, points[obs.pt])
-    r = cam.project(K, p_c) - obs.uv
-    Jproj = cam.project_jacobian(K, p_c)
+    r, Jproj = projection_terms(K, p_c, obs.uv, obs.u_r, bf)
     J_cam = Jproj @ point_jacobian_se3(p_c)
     J_pt = Jproj @ T[..., :3, :3]
     return r, J_cam, J_pt, p_c[..., 2] <= 1e-3
@@ -75,8 +78,9 @@ def inv3x3(A: torch.Tensor) -> torch.Tensor:
 
 def bundle_adjust(poses: torch.Tensor, fixed: torch.Tensor, points: torch.Tensor,
                   obs: BAObservations, K: cam.PinholeK, iters: int = 10,
-                  chi2_th: float = robust.CHI2_MONO) -> BAResult:
-    """poses (Kw,4,4) T_cw; fixed (Kw,) bool anchors; points (Pw,3)."""
+                  chi2_th: float = robust.CHI2_MONO, bf=0.0) -> BAResult:
+    """poses (Kw,4,4) T_cw; fixed (Kw,) bool anchors; points (Pw,3); bf =
+    baseline * fx, used only when obs.u_r is present."""
     Kw = poses.shape[0]
     Pw = points.shape[0]
     dev, dt = poses.device, poses.dtype
@@ -86,9 +90,11 @@ def bundle_adjust(poses: torch.Tensor, fixed: torch.Tensor, points: torch.Tensor
     eye6 = torch.eye(6, dtype=dt, device=dev)
     kf = obs.kf.long()
     pt = obs.pt.long()
+    if obs.u_r is not None:
+        chi2_th = torch.where(obs.u_r >= 0, robust.CHI2_STEREO, chi2_th)
 
     def energy(poses_, points_):
-        r, _, _, behind = _obs_terms(poses_, points_, obs, K)
+        r, _, _, behind = _obs_terms(poses_, points_, obs, K, bf)
         c2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
         rho = torch.where(c2 <= chi2_th, c2,
                           2.0 * torch.sqrt(chi2_th * torch.clamp(c2, min=0.0))
@@ -96,7 +102,7 @@ def bundle_adjust(poses: torch.Tensor, fixed: torch.Tensor, points: torch.Tensor
         return torch.sum(torch.where(obs.valid & ~behind, rho, 0.0))
 
     def step(poses_, points_, lam):
-        r, J_cam, J_pt, behind = _obs_terms(poses_, points_, obs, K)
+        r, J_cam, J_pt, behind = _obs_terms(poses_, points_, obs, K, bf)
         c2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
         w = robust.huber_weight(c2, chi2_th) * obs.inv_sigma2
         w = torch.where(obs.valid & ~behind, w, 0.0)
@@ -156,7 +162,7 @@ def bundle_adjust(poses: torch.Tensor, fixed: torch.Tensor, points: torch.Tensor
                           torch.clamp(lam * 4.0, max=1e2))
         e_prev = torch.where(accept, e_new, e_prev)
 
-    r, _, _, behind = _obs_terms(poses, points, obs, K)
+    r, _, _, behind = _obs_terms(poses, points, obs, K, bf)
     c2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
     inliers = obs.valid & ~behind & (c2 <= chi2_th)
     n_in = torch.clamp(torch.sum(inliers.to(torch.int32)), min=1)

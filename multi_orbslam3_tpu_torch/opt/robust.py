@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 CHI2_MONO = 5.991
+CHI2_STEREO = 7.815
 
 
 def huber_weight(chi2: torch.Tensor, delta2) -> torch.Tensor:

@@ -199,11 +199,14 @@ def local_bundle_adjustment(m: MapState, kf_center, K: cam.PinholeK, *,
                             n_window: int = 16, n_fixed: int = 8,
                             n_points: int = 4096, scale_factor: float = 1.2,
                             iters: int = 8,
-                            covis_threshold: int = 15) -> LocalBAOut:
+                            covis_threshold: int = 15,
+                            bf: float = 0.0) -> LocalBAOut:
     """Windowed BA around `kf_center`: the top covisible keyframes are
     optimized, the next ring is fixed; window landmarks are every point
     those keyframes observe (capped). Results are written back; outlier
-    observations are detached."""
+    observations are detached. bf = baseline * fx > 0 adds the stereo rows
+    of the keyframes' right-u measurements (with bf = 0 the map holds none,
+    and the rows are left out rather than computed as zeros)."""
     dev = m.device
     Kcap, N = m.kf_mp.shape
     kf_center = ms.as_index(kf_center, dev)
@@ -244,12 +247,14 @@ def local_bundle_adjustment(m: MapState, kf_center, K: cam.PinholeK, *,
         pt=torch.where(local_pt >= 0, local_pt, 0),
         uv=m.kf_uv[slots].reshape(-1, 2),
         inv_sigma2=level_inv_sigma2(m.kf_level[slots].reshape(-1), scale_factor),
-        valid=obs_valid)
+        valid=obs_valid,
+        u_r=m.kf_ur[slots].reshape(-1) if bf else None)
     poses0 = m.kf_pose[slots]
     points0 = m.mp_pos[torch.where(pt_ok, pt_global, 0).long()]
     K_slots = ms.kf_intrinsics(m, slots, K)
     K_obs = cam.PinholeK(*(f.repeat_interleave(N) for f in K_slots))
-    res = local_ba.bundle_adjust(poses0, fixed, points0, obs, K_obs, iters=iters)
+    res = local_ba.bundle_adjust(poses0, fixed, points0, obs, K_obs, iters=iters,
+                                 bf=bf)
 
     kf_pose = ms.scatter_rows(m.kf_pose, slots, slot_ok & ~fixed, res.poses)
     mp_pos = ms.scatter_rows(m.mp_pos, pt_global, pt_ok, res.points)
@@ -289,7 +294,8 @@ def map_keyframe(m: MapState, kf_new, K: cam.PinholeK, *,
                  n_neighbors: int, width: int, height: int,
                  scale_factor: float, n_levels: int,
                  n_window: int, n_fixed: int, n_points: int,
-                 iters: int, covis_threshold: int = 15) -> MapKFOut:
+                 iters: int, covis_threshold: int = 15,
+                 bf: float = 0.0) -> MapKFOut:
     """The whole per-keyframe mapping chain: triangulate/fuse/stats, then
     the windowed BA."""
     proc = process_new_keyframe(
@@ -298,6 +304,6 @@ def map_keyframe(m: MapState, kf_new, K: cam.PinholeK, *,
     out = local_bundle_adjustment(
         proc.map, kf_new, K, n_window=n_window, n_fixed=n_fixed,
         n_points=n_points, scale_factor=scale_factor, iters=iters,
-        covis_threshold=covis_threshold)
+        covis_threshold=covis_threshold, bf=bf)
     return MapKFOut(map=out.map, n_created=proc.n_created,
                     n_fused=proc.n_fused, chi2=out.chi2)

@@ -198,16 +198,17 @@ def nbest_candidates(m: MapState, scores_np: np.ndarray, n_best: int = 3,
 
 def weld_after_merge(m: MapState, kf_cur, K: cam.PinholeK, *, width: int,
                      height: int, scale_factor: float = 1.2, n_levels: int = 8,
-                     n_points: int = 4096) -> MapState:
+                     n_points: int = 4096, bf: float = 0.0) -> MapState:
     """Welding after a loop/merge correction: fuse duplicate landmarks into
     the seam keyframe, then a local BA centred on it (post-fusion
-    covisibility spans both sides of the seam)."""
+    covisibility spans both sides of the seam). bf = baseline * fx > 0 adds
+    the stereo rows to that BA."""
     m = local_mapping.fuse_into_keyframe(
         m, kf_cur, K, width=width, height=height, scale_factor=scale_factor,
         n_levels=n_levels).map
     return local_mapping.local_bundle_adjustment(
         m, kf_cur, K, n_window=16, n_fixed=8, n_points=min(n_points, m.max_mp),
-        scale_factor=scale_factor, iters=8).map
+        scale_factor=scale_factor, iters=8, bf=bf).map
 
 
 def correct_loop(m: MapState, kf_cur, kf_cand, S_loop: sim3.Sim3,

@@ -25,17 +25,13 @@ import torch
 from multi_orbslam3_tpu_torch.bow import database as dbm
 from multi_orbslam3_tpu_torch.bow import vocabulary as vocm
 from multi_orbslam3_tpu_torch.config import SystemConfig
+from multi_orbslam3_tpu_torch.dataio import checkpoint as ckpt
 from multi_orbslam3_tpu_torch.frontend import extractor, matcher
 from multi_orbslam3_tpu_torch.frontend.extractor import FrameFeatures
 from multi_orbslam3_tpu_torch.geometry import camera as cam
 from multi_orbslam3_tpu_torch.map import mapstate as ms
 from multi_orbslam3_tpu_torch.pipeline import initializer, local_mapping, tracking
 from multi_orbslam3_tpu_torch.pipeline.loop_closing import LoopCloser
-
-
-# frames in flight in the pipelined loop: frame i is dispatched while the
-# host finalizes frame i - 1
-PIPELINE_DEPTH = 1
 
 
 class TrackState(enum.Enum):
@@ -123,9 +119,13 @@ class MonoSlam:
         self.defer_mapping = True
         # pipelined loop: in-flight (feats, res, ts, host copy of packed)
         self._pipe: List[tuple] = []
+        # frames in flight before the host state machine consumes one:
+        # frame i is dispatched while the host finalizes frame i - 1
+        self.pipeline_depth = 1
         self._T_cur_dev = None
         self._T_vel_dev = None
         self._m_stats = None
+        self._refined_pose_np = None
         self.frame_log: List[Tuple[float, TrackState]] = []
         self.ref_kf = 0
         self.frames_since_kf = 0
@@ -187,6 +187,7 @@ class MonoSlam:
             self._try_initialize(extractor.extract_features(img, self.cfg),
                                  timestamp)
         else:
+            self._pre_track(timestamp)
             T_pred = (self.T_vel @ self.T_cur).astype(np.float32)
             feats, res, m_stats = tracking.extract_and_track(
                 self.m, img, self._upload(T_pred), self.cfg)
@@ -194,6 +195,7 @@ class MonoSlam:
             self._track_decide(feats, res, T_pred, timestamp,
                                _HostCopy(res.packed).numpy())
             self._m_stats = None
+            self._post_track(timestamp)
         self.trajectory.append((timestamp, self.T_cur.copy()))
         self.frame_log.append((timestamp, self.state))
         return self.state
@@ -219,7 +221,7 @@ class MonoSlam:
             self.cfg, self.m, img, self._T_cur_dev, self._T_vel_dev)
         self._pipe.append((feats, res, ts, _HostCopy(res.packed)))
         self._T_cur_dev, self._T_vel_dev = pose_dev, tvel_dev
-        while len(self._pipe) > PIPELINE_DEPTH:
+        while len(self._pipe) > self.pipeline_depth:
             self._finalize_frame(*self._pipe.pop(0))
         return self.state
 
@@ -252,6 +254,47 @@ class MonoSlam:
             self._T_vel_dev = self._upload(self.T_vel)
         self.trajectory.append((ts, self.T_cur.copy()))
         self.frame_log.append((ts, self.state))
+
+    def _pre_track(self, ts: float) -> None:
+        """Hook: update the motion model before prediction (the inertial
+        subclass propagates the IMU state here)."""
+
+    def _post_track(self, ts: float) -> None:
+        """Hook: after the tracking decision (velocity re-anchoring)."""
+
+    def _refine_pose(self, feats: FrameFeatures, res):
+        """Hook: refine the visually optimized frame pose (the inertial
+        subclass runs the visual-inertial pose optimisation here). A hook
+        that returns another result may leave the host copy of its pose in
+        ``_refined_pose_np``."""
+        return res
+
+    def _frame_ur(self):
+        """Hook: per-feature stereo right-u of the current frame (None for
+        monocular systems)."""
+        return None
+
+    def _bf(self) -> float:
+        """Hook: baseline * fx (0 disables the stereo residual rows)."""
+        return 0.0
+
+    def _seed_depth_points(self, k: int, feats: FrameFeatures) -> None:
+        """Hook: stereo / RGB-D systems create depth-seeded landmarks for
+        the new keyframe here, before the mapping chain is dispatched."""
+
+    def _track(self, feats: FrameFeatures, ts: float) -> None:
+        """Non-fused tracking, for callers that already hold the features
+        (the stereo and RGB-D synchronous loops)."""
+        c = self.cfg
+        T_pred = (self.T_vel @ self.T_cur).astype(np.float32)
+        res = tracking.track_frame(
+            self.m, feats, self._upload(T_pred), self.K,
+            width=c.camera.width, height=c.camera.height,
+            scale_factor=c.orb.scale_factor, n_levels=c.orb.n_levels,
+            radius_coarse=c.tracking.search_radius,
+            u_r=self._frame_ur(), bf=self._bf())
+        packed = _HostCopy(tracking.pack_result(res.pose, res)).numpy()
+        self._track_decide(feats, res, T_pred, ts, packed)
 
     # ------------------------------------------------------------------
     def _try_initialize(self, feats: FrameFeatures, ts: float) -> None:
@@ -344,6 +387,10 @@ class MonoSlam:
                 res, n_in, pose_np = res3, int(res3.n_inliers), None
 
         if n_in >= c.tracking.min_matches_refkf:
+            res2 = self._refine_pose(feats, res)
+            if res2 is not res:
+                res, pose_np = res2, self._refined_pose_np
+                self._refined_pose_np = None
             T_new = pose_np if pose_np is not None else res.pose.cpu().numpy()
             self.T_vel = (np.eye(4, dtype=np.float32) if stale else
                           (T_new @ np.linalg.inv(self.T_cur)).astype(np.float32))
@@ -453,14 +500,11 @@ class MonoSlam:
 
     # ------------------------------------------------------------------
     def activate_localization_mode(self, checkpoint_path: Optional[str] = None) -> None:
-        """Switch to localization-only tracking against the map this system
-        holds: rebuild the BoW database over its keyframes and start LOST,
-        so the first frames relocalize. Loading a checkpoint is not ported
-        yet (it needs dataio/checkpoint)."""
+        """Switch to localization-only tracking: optionally load a frozen
+        map from a checkpoint, rebuild the BoW database over the map's
+        keyframes and start LOST, so the first frames relocalize."""
         if checkpoint_path is not None:
-            raise NotImplementedError(
-                "activate_localization_mode(checkpoint_path): map checkpoints "
-                "are not ported to multi_orbslam3_tpu_torch yet")
+            self.m, _ = ckpt.load_map(checkpoint_path, self.device)
         self.localization_only = True
         n = int(self.m.n_kf)
         for k in np.nonzero(self.m.kf_valid[:n].cpu().numpy())[0]:
@@ -490,11 +534,12 @@ class MonoSlam:
                          ts: float) -> None:
         m, k_new = ms.add_keyframe(self.m, feats, self._upload(self.T_cur), ts,
                                    feat_mp, self.ref_kf, self.agent,
-                                   cam4=self._cam4)
+                                   u_r=self._frame_ur(), cam4=self._cam4)
         k = int(k_new)
         if k < 0:   # capacity reached
             return
         self.m = m
+        self._seed_depth_points(k, feats)
         # an immature map adopts its mapping results synchronously: a young
         # map whose triangulations lag starves tracking of landmarks
         self._active_map_kfs += 1
@@ -511,7 +556,8 @@ class MonoSlam:
         if self._pending_map is not None:
             self._adopt_pending(force=True)
         out = local_mapping.map_keyframe(
-            self.m, k, self.K, **local_mapping.mapping_kwargs(self.cfg))
+            self.m, k, self.K, **local_mapping.mapping_kwargs(self.cfg),
+            bf=self._bf())
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
@@ -556,7 +602,8 @@ class MonoSlam:
         """The loop-closing cascade on keyframe k, with full camera context."""
         c = self.cfg
         return self.loop_closer.on_keyframe(
-            self.m, k, fix_scale=self._yaw_only(), yaw_only=self._yaw_only(),
+            self.m, k, fix_scale=self._bf() > 0.0 or self._yaw_only(),
+            yaw_only=self._yaw_only(),
             K=self.K, width=c.camera.width, height=c.camera.height,
             scale_factor=c.orb.scale_factor, n_levels=c.orb.n_levels,
             min_proj_matches=c.loop.min_proj_matches,

@@ -1,8 +1,8 @@
 """Frame tracking: projection matching + pose optimisation (counterpart of
 multi_orbslam3_tpu/pipeline/tracking.py).
 
-``fused_step_chained`` is the per-frame device program of the pipelined
-frame loop: ORB extraction, two rounds of guided matching against the
+``fused_step_chained`` (``fused_step_stereo_chained`` for a stereo pair) is
+the per-frame device program of the pipelined frame loop: ORB extraction, two rounds of guided matching against the
 whole map (kernel K2 inside ``match_by_projection``) with a pose
 optimisation after each, and the guarded prediction chain. It launches
 work and reads nothing back; the host reads one small ``packed`` tensor
@@ -17,7 +17,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from multi_orbslam3_tpu_torch.frontend import extractor, matcher
+from multi_orbslam3_tpu_torch.frontend import extractor, matcher, stereo
 from multi_orbslam3_tpu_torch.frontend.extractor import FrameFeatures
 from multi_orbslam3_tpu_torch.geometry import camera as cam
 from multi_orbslam3_tpu_torch.geometry import se3
@@ -93,13 +93,14 @@ def _match_and_invert(m: MapState, T: torch.Tensor, feats: FrameFeatures,
 
 def _pose_from_assoc(m: MapState, feats: FrameFeatures, feat_mp: torch.Tensor,
                      T_init: torch.Tensor, K: cam.PinholeK,
-                     scale_factor: float, rounds: int = 4, iters: int = 10):
+                     scale_factor: float, rounds: int = 4, iters: int = 10,
+                     u_r=None, bf=0.0):
     p_world = m.mp_pos[torch.where(feat_mp >= 0, feat_mp, 0).long()]
     mask = (feat_mp >= 0) & feats.valid
     res = pose_opt.pose_optimization(
         T_init, K, p_world, feats.uv_und,
         level_inv_sigma2(feats.level, scale_factor), mask,
-        rounds=rounds, iters=iters)
+        rounds=rounds, iters=iters, u_r=u_r, bf=bf)
     return res.pose, torch.where(res.inliers, feat_mp, NO_MP), res.n_inliers
 
 
@@ -107,37 +108,42 @@ def track_frame(m: MapState, feats: FrameFeatures, T_pred: torch.Tensor,
                 K: cam.PinholeK, *, width: int, height: int,
                 scale_factor: float, n_levels: int,
                 radius_coarse: float = 15.0, radius_fine: float = 4.0,
-                opt_rounds: int = 2, opt_iters: int = 7) -> TrackResult:
+                opt_rounds: int = 2, opt_iters: int = 7,
+                u_r=None, bf=0.0) -> TrackResult:
     """Coarse match at the predicted pose, optimize, re-match finely at the
-    optimized pose, optimize again."""
+    optimized pose, optimize again. u_r / bf: optional per-feature stereo
+    right-u and baseline * fx, which add the stereo pose edges."""
     feat_mp, _ = _match_and_invert(m, T_pred, feats, K, radius_coarse,
                                    width, height, scale_factor, n_levels,
                                    level_slack=2)
     n_matches = torch.sum((feat_mp >= 0).to(torch.int32)).to(torch.int32)
     T1, feat_mp1, _ = _pose_from_assoc(m, feats, feat_mp, T_pred, K,
-                                       scale_factor, opt_rounds, opt_iters)
+                                       scale_factor, opt_rounds, opt_iters,
+                                       u_r, bf)
     feat_mp2, visible = _match_and_invert(m, T1, feats, K, radius_fine,
                                           width, height, scale_factor,
                                           n_levels, level_slack=1)
     # keep round-1 inlier associations where round 2 found nothing
     feat_mp2 = torch.where(feat_mp2 >= 0, feat_mp2, feat_mp1)
     T2, feat_mp_f, n2 = _pose_from_assoc(m, feats, feat_mp2, T1, K,
-                                         scale_factor, opt_rounds, opt_iters)
+                                         scale_factor, opt_rounds, opt_iters,
+                                         u_r, bf)
     return TrackResult(pose=T2, feat_mp=feat_mp_f, n_inliers=n2,
                        n_matches=n_matches, visible=visible)
 
 
-def _track_config(m, feats, T_pred, config):
+def _track_config(m, feats, T_pred, config, u_r=None, bf=0.0):
     c = config
     K = extractor._camera_consts(c.camera, T_pred.device)[0]
     return track_frame(m, feats, T_pred, K, width=c.camera.width,
                        height=c.camera.height,
                        scale_factor=c.orb.scale_factor,
                        n_levels=c.orb.n_levels,
-                       radius_coarse=c.tracking.search_radius)
+                       radius_coarse=c.tracking.search_radius, u_r=u_r, bf=bf)
 
 
-def _pack(pose, res, extra=None):
+def pack_result(pose, res, extra=None):
+    """[pose(16), n_inliers, n_matches(, extra)] as one float32 vector."""
     parts = [pose.reshape(-1).float(),
              torch.stack([res.n_inliers.float(), res.n_matches.float()])]
     if extra is not None:
@@ -154,24 +160,45 @@ def fused_step(config, m: MapState, img: torch.Tensor, T_pred: torch.Tensor):
     ok = res.n_inliers >= config.tracking.min_matches_refkf
     m2 = m._replace(mp_found=torch.where(ok, m2.mp_found, m.mp_found),
                     mp_visible=torch.where(ok, m2.mp_visible, m.mp_visible))
-    return feats, res._replace(packed=_pack(res.pose, res)), m2
+    return feats, res._replace(packed=pack_result(res.pose, res)), m2
+
+
+def _chain(config, res: TrackResult, T_cur, T_vel, T_pred):
+    """The guarded next state of the on-device prediction chain: the pose
+    falls back to T_pred (and T_vel holds) when the track is weak.
+    packed = [pose(16), n_inliers, n_matches, T_pred(16)].
+    Returns (result, pose, T_vel_new)."""
+    ok = res.n_inliers >= config.tracking.min_matches_refkf
+    pose = torch.where(ok, res.pose, T_pred)
+    T_cur_inv = torch.linalg.inv_ex(T_cur)[0]
+    T_vel_new = torch.where(ok, res.pose @ T_cur_inv, T_vel)
+    res = res._replace(pose=pose, packed=pack_result(pose, res, T_pred))
+    return res, pose, T_vel_new
 
 
 def fused_step_chained(config, m: MapState, img: torch.Tensor,
                        T_cur: torch.Tensor, T_vel: torch.Tensor):
     """Extract + track with the prediction chain on the device: T_pred =
-    T_vel @ T_cur; the next chain state falls back to T_pred (and T_vel
-    holds) when the track is weak. packed = [pose(16), n_inliers,
-    n_matches, T_pred(16)]. Returns (feats, result, pose, T_vel_new)."""
+    T_vel @ T_cur. Returns (feats, result, pose, T_vel_new)."""
     T_pred = T_vel @ T_cur
     feats = extractor.extract_features(img, config)
     res = _track_config(m, feats, T_pred, config)
-    ok = res.n_inliers >= config.tracking.min_matches_refkf
-    pose = torch.where(ok, res.pose, T_pred)
-    T_cur_inv = torch.linalg.inv_ex(T_cur)[0]
-    T_vel_new = torch.where(ok, res.pose @ T_cur_inv, T_vel)
-    res = res._replace(pose=pose, packed=_pack(pose, res, T_pred))
-    return feats, res, pose, T_vel_new
+    return (feats,) + _chain(config, res, T_cur, T_vel, T_pred)
+
+
+def fused_step_stereo_chained(config, m: MapState, img_l: torch.Tensor,
+                              img_r: torch.Tensor, T_cur: torch.Tensor,
+                              T_vel: torch.Tensor):
+    """Stereo twin of fused_step_chained: both extractions (K1 launched
+    once for the two pyramids), the stereo match, tracking with the stereo
+    rows, and the same chain and ``packed`` layout.
+    Returns (feats, stereo depth, result, pose, T_vel_new)."""
+    bf = config.camera.baseline * config.camera.fx
+    T_pred = T_vel @ T_cur
+    feats, feats_r = extractor.extract_features_pair(img_l, img_r, config)
+    sd = stereo.stereo_match(feats, feats_r, bf)
+    res = _track_config(m, feats, T_pred, config, u_r=sd.u_right, bf=bf)
+    return (feats, sd) + _chain(config, res, T_cur, T_vel, T_pred)
 
 
 def extract_and_track(m: MapState, img: torch.Tensor, T_pred: torch.Tensor,

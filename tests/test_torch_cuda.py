@@ -189,6 +189,87 @@ def test_hamming_best_two_projection_kernel_equals_plain(dev, n, m, radius, leve
         assert int((got[1] < kernels.BIG).sum()) > 10
 
 
+def _stereo_case(n, m, dev, kind):
+    """Left rows against right columns of a rectified pair. "random": each
+    left feature near a right one, ~25% invalid each way. "ties": the same
+    with every 7th column a copy of its neighbour and rows that copy
+    columns. "tolerance": every left feature sits exactly on the row
+    tolerance of its level, one float32 step beyond it, or at disparity
+    exactly 0.3 / max / one step inside, against the right feature it was
+    made from (positions chosen so that the differences are exact)."""
+    rng = np.random.RandomState(n * 5 + m + len(kind))
+    d1, v1, d2, v2 = _match_case(n, m, dev, kind != "random")
+    f32 = np.float32
+    src = rng.randint(0, m, n)
+    levelR = rng.randint(0, 8, m).astype(np.int32)
+    uvR = np.stack([np.round(rng.uniform(0, 600, m)), np.round(rng.uniform(0, 480, m))],
+                   1).astype(f32)
+    levelL = np.clip(levelR[src] + rng.randint(-2, 3, n), 0, 7).astype(np.int32)
+    tol = (f32(2.0) * (np.float64(f32(1.2)) ** np.arange(8)).astype(f32))[levelL]
+    if kind == "tolerance":
+        # integer right positions below 2^10 keep uR + x and vR + x exact
+        # enough that (vR + dv) - vR and (uR + disp) - uR round as planned
+        # for most rows; the plain version decides the rest the same way
+        step = rng.randint(0, 6, n)
+        dv = np.where(step == 0, tol, np.where(step == 1, np.nextafter(tol, f32(np.inf)),
+                      np.where(step == 2, -tol, f32(0.0)))).astype(f32)
+        disp = np.where(step == 3, f32(0.3), np.where(
+            step == 4, f32(128.0), np.where(step == 5, np.nextafter(f32(128.0), f32(0)),
+                                            f32(40.0)))).astype(f32)
+        uvL = np.stack([uvR[src, 0] + disp, uvR[src, 1] + dv], 1).astype(f32)
+    else:
+        uvL = (uvR[src] + np.stack([rng.uniform(-5, 140, n), rng.randn(n) * 3.0], 1)
+               ).astype(f32)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    srcd = to(src)
+    d1 = torch.where(to(rng.rand(n) < 0.6)[:, None], d2[srcd], d1)
+    return dict(descL=d1, uvL=to(uvL), validL=v1, levelL=to(levelL), tol=to(tol),
+                descR=d2, uvR=to(uvR), validR=v2, levelR=to(levelR))
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "tolerance"])
+@pytest.mark.parametrize("n,m", [(1024, 1024), (300, 77), (5, 3), (65, 130), (2000, 1024)])
+def test_hamming_best_two_stereo_kernel_equals_plain(dev, n, m, kind):
+    """Exact equality of idx, best and second: the kernel's float32 row,
+    disparity and level tests agree with the plain version's on every
+    pair, pairs on the limits included; the tolerance vector equals the
+    table the CPU builds."""
+    c = _stereo_case(n, m, dev, kind)
+    assert torch.equal(kernels.stereo_row_tolerance(c["levelL"], 2.0), c["tol"])
+    before = kernels.launch_counts()["hamming_best_two_stereo"]
+    got = kernels.hamming_best_two_stereo(**c, max_disparity=128.0)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["hamming_best_two_stereo"] == before + 1
+    want = kernels.hamming_best_two_stereo_ref(**c, max_disparity=128.0)
+    for g, w, what in zip(got, want, ("idx", "best", "second")):
+        assert g.dtype == w.dtype and torch.equal(g, w), what
+    if n > 100:
+        assert int((got[1] < kernels.BIG).sum()) > 10
+        assert int((got[1] >= kernels.BIG).sum()) > 0
+
+
+def test_stereo_match_on_the_card_equals_the_cpu(dev):
+    """frontend.stereo.stereo_match launches the fused kernel for CUDA
+    features and gives the CPU's result."""
+    from multi_orbslam3_tpu_torch.frontend import stereo
+    c = _stereo_case(1024, 1024, dev, "ties")
+
+    def feats(side, device):
+        z = torch.zeros(1024, device=device)
+        uv = c["uv" + side].to(device)
+        return FrameFeatures(uv=uv, uv_und=uv, response=z, level=c["level" + side].to(device),
+                             angle=z, desc=c["desc" + side].to(device),
+                             valid=c["valid" + side].to(device))
+
+    before = kernels.launch_counts()["hamming_best_two_stereo"]
+    got = stereo.stereo_match(feats("L", dev), feats("R", dev), 50.0)
+    assert kernels.launch_counts()["hamming_best_two_stereo"] == before + 1
+    want = stereo.stereo_match(feats("L", "cpu"), feats("R", "cpu"), 50.0)
+    assert int(want.valid.sum()) > 10
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
 def test_fused_matches_on_a_side_stream(dev):
     """Both fused matches launched on a non-default stream."""
     d1, v1, d2, v2 = _match_case(300, 77, dev, True)

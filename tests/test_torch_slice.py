@@ -363,11 +363,13 @@ def test_repair_d_defer_mapping_false_adopts_synchronously(small_voc):
 def test_repair_e_localization_mode_switches(small_voc):
     """(e) Localization mode: LOST at once with the database rebuilt over
     the map's keyframes, no keyframe decisions, no map reset when lost;
-    a checkpoint path is refused (checkpoints are not ported yet)."""
+    a checkpoint path is opened (tests/test_torch_io.py loads one), so a
+    missing file is an error and leaves the mode off."""
     c = cfg.small_synthetic()
     slam = tsys.MonoSlam(CT, vocabulary=small_voc, device="cpu")
-    with pytest.raises(NotImplementedError):
-        slam.activate_localization_mode("map.npz")
+    with pytest.raises(FileNotFoundError):
+        slam.activate_localization_mode("no_such_map.npz")
+    assert not slam.localization_only
     slam.activate_localization_mode()
     assert slam.localization_only and slam.state == tsys.TrackState.LOST
     assert slam.lost_count >= 10 ** 6 and not slam._need_keyframe(500)
