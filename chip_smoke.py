@@ -73,12 +73,35 @@ failure:
 10. stereo_inertial: tests/test_stereo_inertial.py's drill at bench width,
    50 frames: IMU initialized, scale 1 +- 1e-5, ATE <= 0.1 x max(span, 1);
    then RGBDInertialSlam for 20 frames: state OK;
-11. sync_free: one fused step (mono and stereo), one mapping chain and one
-   place-recognition step on the final map run under torch's sync debug
-   mode "error": none reads the device back.
+11. collab: bench_collab (eval/benchmarks.py:186-287) on the port: two
+   CollabClients and a CollabServer over InProcessTransport, synthetic_mono
+   (640x480, 1024 features; the arena holds 1024 keyframes and 32768
+   landmarks), 150 frames an agent of a circular orbit (seed 31), GBA on
+   events and periodic, drain_gba at the end, one timed pass. Fails unless
+   a merge happened, a GBA was adopted, every agent has >= 8 valid server
+   keyframes, >= 120 of 150 frames OK and a server-arena keyframe ATE
+   < 0.02 x max(span, 1) (tests/test_collab_bench_scale.py's gate), K1 ran
+   once a client frame and the server itself launched the fused validity
+   match (its cascade) and the fused projection match (its arena fuse).
+   Run under torch's deterministic algorithms with the server's
+   `deterministic` flag (one GBA step a cycle, adoption on a fixed
+   cycle): free-running, about one run in four or five ends with one
+   agent's keyframes metres off (see `reproducible`).
+   Prints merges, loops, GBA runs/rejections/aborts, culls, bytes up and
+   down, total_fps_wall, the server comm_cycle's ms (p50/p90/p99, CUDA
+   events), one GN step with 40 CG iterations on the final arena, the
+   cascade's and correct_loop's ms, peak memory and codec_native;
+12. sync_free: one fused step (mono and stereo), one mapping chain, one
+   place-recognition step and one global-BA step on the collab phase's
+   final arena run under torch's sync debug mode "error": none reads the
+   device back.
+
+The kernels phase also holds K2's fused matches at the collaborative
+arena's shapes: the validity match at 32768 x 32768 (about 4% and about
+75% valid, both inner products) and the projection match at 32768 x 1024.
 
 Kernel launch counts are reset just before each driven path (the timed
-passes of 3 and 4, and 5 to 10) and read just after it; each fails unless
+passes of 3 and 4, and 5 to 11) and read just after it; each fails unless
 K1 and a K2 kernel were launched. The last three lines of stdout are the
 card's nvidia-smi name/power-limit line, a JSON summary of the kernels
 (one entry for each TPU kernel, its variants beneath it, launches summed
@@ -164,7 +187,14 @@ def reproducible():
     the same code end anywhere from 0.013 to 0.105 x span. XLA's scatter-add
     keeps one order, so the JAX package gives one result a build; this
     switch gives the port the same property for the inertial phases, whose
-    gates are then checked on a result that repeats. (The port works on one
+    gates are then checked on a result that repeats. The collab phase runs
+    under it too, with the server's `deterministic` flag, which takes the
+    GBA's step and adoption timing off the host's speed. Free-running,
+    three of thirteen runs on an H100 ended with an agent's arena keyframes
+    1.0-2.2 m off after alignment: after the merge, one client's tracking
+    drifted metres off while it reported every frame OK, and its own map
+    was as far off as the arena (profiling/torch_collab_runs.py --trace).
+    Deterministic runs repeat one result, which passes. (The port works on one
     stream, so cuBLAS keeps one order without a fixed workspace: the result
     is the same digits with and without CUBLAS_WORKSPACE_CONFIG.)"""
     before = (torch.are_deterministic_algorithms_enabled(),
@@ -708,6 +738,72 @@ def check_matcher_memory(cfg, gen) -> None:
         raise AssertionError(f"the matchers allocated {extra} bytes: an N x M tensor")
 
 
+def check_k2_arena(card: dict, gen, n_agents: int = 2) -> dict:
+    """K2's fused matches at the collaborative server's arena shapes (the
+    synthetic_mono config, 2 agents: 32768 landmarks, 1024 features): the
+    validity match at 32768 x 32768, as the verification cascade's
+    match_loop_landmarks runs it, with about 4% valid (the cascade's
+    region masks) and about 75% valid, both inner products; the
+    projection match at 32768 x 1024, as the arena fuse runs it. The plain
+    validity version goes 2048 rows at a time (a full 32768^2 int32 matrix
+    is 4 GiB) and every case is freed before the next."""
+    from multi_orbslam3_tpu_torch import config as cfgm
+    from multi_orbslam3_tpu_torch.frontend import kernels
+    dev = torch.device("cuda")
+    c = cfgm.synthetic_mono()
+    P, n_feat = c.map.max_mappoints * n_agents, c.orb.n_features
+    W, H = c.camera.width, c.camera.height
+    rows = {"hamming_best_two_valid_popc": [], "hamming_best_two_valid_mma": [],
+            "hamming_best_two_projection": []}
+    for kind in ("sparse", "random"):
+        case = match_case(P, P, gen, dev, kind, W, H)
+        d1, v1, d2, v2 = case["valid"]
+        del case
+        want = kernels.hamming_best_two_valid_ref(d1, v1, d2, v2, row_block=2048)
+        torch.cuda.synchronize()
+        plain = call_ms(lambda: kernels.hamming_best_two_valid_ref(
+            d1, v1, d2, v2, row_block=2048), reps=1, warmup=0)
+        n_valid = float(v1.sum()) * float(v2.sum())
+        for inner in ("popc", "mma"):
+            fn = lambda: kernels.hamming_best_two_valid(d1, v1, d2, v2, inner=inner)
+            got = fn()
+            torch.cuda.synchronize()
+            require_equal(f"K2 valid/{inner} {P}x{P} ({kind})", got, want)
+            ms, how = device_ms(fn, f"best_two_{inner}_kernel", launches=5)
+            ops = ({"popc": 8.0 * n_valid} if inner == "popc"
+                   else {"mma_int8_ops": 64.0 * n_valid})
+            rows[f"hamming_best_two_valid_{inner}"].append({
+                "shape": [P, P], "inputs": kind, "valid_pairs": n_valid,
+                "max_abs_err": 0.0, "device_ms": ms, "device_ms_from": how,
+                "call_ms": call_ms(fn, reps=3), "plain_ms": plain, "library_ms": None,
+                **bound(card, 33.0 * (P + P) + 16.0 * P + 24.0 * P, **ops)})
+        del want, d1, v1, d2, v2
+        torch.cuda.empty_cache()
+    c_p = match_case(P, n_feat, gen, dev, "random", W, H)["projection"]
+    pfn = lambda: kernels.hamming_best_two_projection(**c_p)
+    got = pfn()
+    torch.cuda.synchronize()
+    require_equal(f"K2 projection {P}x{n_feat}", got,
+                  kernels.hamming_best_two_projection_ref(**c_p))
+    d2p = torch.sum((c_p["proj_uv"][:, None, :] - c_p["feat_uv"][None, :, :]) ** 2, dim=-1)
+    passing = float(((d2p <= c_p["radius"][:, None] ** 2)
+                     & ((c_p["feat_level"][None, :] - c_p["pred_level"][:, None]).abs() <= 1)
+                     & c_p["proj_valid"][:, None] & c_p["feat_valid"][None, :]).sum())
+    del d2p
+    n_valid = float(c_p["proj_valid"].sum()) * float(c_p["feat_valid"].sum())
+    ms, how = device_ms(pfn, "best_two_popc_kernel")
+    rows["hamming_best_two_projection"].append({
+        "shape": [P, n_feat], "inputs": "random", "valid_pairs": n_valid,
+        "window_pairs": passing, "max_abs_err": 0.0, "device_ms": ms,
+        "device_ms_from": how, "call_ms": call_ms(pfn),
+        "plain_ms": call_ms(lambda: kernels.hamming_best_two_projection_ref(**c_p), reps=5),
+        "library_ms": None,
+        **bound(card, 49.0 * P + 45.0 * n_feat + 16.0 * P, popc=8.0 * passing,
+                fp32_instr=5.0 * n_valid, minmax_instr=n_valid)})
+    emit("kernel_hamming_arena_shapes", exact=True, **rows)
+    return rows
+
+
 def phase_kernels(frame: np.ndarray, frame_right: np.ndarray, cfg, card: dict) -> dict:
     """Every kernel against its plain version at the main path's shapes,
     with its times and its bound; {variant name: row}. Each check frees its
@@ -719,6 +815,8 @@ def phase_kernels(frame: np.ndarray, frame_right: np.ndarray, cfg, card: dict) -
     rows.update(check_k2_matrix(cfg, card, gen))
     rows.update(check_k2_fused(cfg, card, gen))
     rows.update(check_k2_stereo(cfg, card, gen))
+    for name, arena in check_k2_arena(card, gen).items():
+        rows[name]["arena_shapes"] = arena
     check_matcher_memory(cfg, gen)
     return rows
 
@@ -756,12 +854,17 @@ def drive_mono(cfg, seq, device: str, loop_closing: bool,
     return slam, np.asarray(frame_ms), wall, kernels.launch_counts()
 
 
-def phase_sync_free(cfg, slam, seq, stereo_cfg, stereo_slam, stereo_seq) -> None:
-    """The fused step (mono and stereo), the mapping chain and the
-    place-recognition step launch their work without one device->host
-    read: all run under torch's sync debug mode "error"."""
+def phase_sync_free(cfg, slam, seq, stereo_cfg, stereo_slam, stereo_seq, server) -> None:
+    """The fused step (mono and stereo), the mapping chain, the
+    place-recognition step and one global-BA step on the collaborative
+    server's final arena launch their work without one device->host read:
+    all run under torch's sync debug mode "error"."""
+    from multi_orbslam3_tpu_torch.opt import global_ba
     from multi_orbslam3_tpu_torch.pipeline import local_mapping, loop_closing, tracking
     start_phase()
+    obs, K_obs, fixed, _, _ = server._assemble_gba()
+    obs, K_obs = server._valid_rows(obs, K_obs)
+    fixed_d = torch.from_numpy(fixed).cuda()
     img = slam.to_device(seq.images[-1])
     T_cur = slam._upload(slam.T_cur)
     T_vel = slam._upload(slam.T_vel)
@@ -780,11 +883,13 @@ def phase_sync_free(cfg, slam, seq, stereo_cfg, stereo_slam, stereo_seq) -> None
         local_mapping.map_keyframe(slam.m, k, slam.K,
                                    **local_mapping.mapping_kwargs(cfg))
         loop_closing._pr_step(lc.db, lc.voc, slam.m, k)
+        global_ba.global_bundle_adjust(server.m.kf_pose, fixed_d, server.m.mp_pos,
+                                       server.m.mp_valid, obs, K_obs, iters=1)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     emit("sync_free", fused_step_chained=True, fused_step_stereo_chained=True,
-         map_keyframe=True, pr_step=True)
+         map_keyframe=True, pr_step=True, global_bundle_adjust=True)
 
 
 def ate_of(slam, seq, ok_idx, offset: int = 0, with_scale: bool = True) -> tuple:
@@ -1289,6 +1394,156 @@ def phase_stereo_inertial(device: str = "cuda") -> dict:
     return finish_phase("stereo_inertial", res, problems)
 
 
+def gn_step_ms(server, device: str = "cuda") -> dict:
+    """One Gauss-Newton step with 40 CG iterations on the server's final
+    arena, on the valid rows of its observation list as the server solves
+    (CUDA events, after one warm-up step), with that count of rows and the
+    full list's."""
+    from multi_orbslam3_tpu_torch.opt import global_ba
+    obs, K_obs, fixed, _, _ = server._assemble_gba()
+    rows = int(obs.valid.numel())
+    obs, K_obs = server._valid_rows(obs, K_obs)
+    m = server.m
+    fixed_d = torch.from_numpy(fixed).to(device)
+    step = lambda: global_ba.global_bundle_adjust(m.kf_pose, fixed_d, m.mp_pos, m.mp_valid,
+                                                  obs, K_obs, iters=1, cg_iters=40)
+    step()
+    sync(device)
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        sync(device)
+        times.append(start.elapsed_time(end))
+    return {"gn_step_ms": float(np.median(times)), "gn_step_ms_all": times,
+            "obs_rows": rows, "obs_valid": int(obs.valid.sum())}
+
+
+def phase_collab(device: str = "cuda", n_frames: int = 150, config=None,
+                 deterministic: bool = False, on_cycle=None) -> tuple:
+    """bench_collab (eval/benchmarks.py:186-287) on the port: two
+    CollabClients of monocular agents and a CollabServer over
+    InProcessTransport, the synthetic_mono config (640x480, 1024 features,
+    8 levels; per agent 512 keyframes and 16384 landmarks, so the arena
+    holds 1024 and 32768), the bundled k=10 L=5 vocabulary, 150 frames an
+    agent of a circular orbit (1200 points, seed 31, phase 1.1 + 0.55 a,
+    arc 2.3 pi), GBA on events and periodic, drain_gba at the end. One
+    timed pass (the JAX bench's warm-up pass is dropped). Scored on each
+    agent's server-arena keyframes matched to ground truth by timestamp.
+    deterministic sets the server's flag of that name; on_cycle(i, server,
+    clients, seqs) is called after each server cycle and, with i = F,
+    after drain_gba (profiling/torch_collab_runs.py --trace)."""
+    from multi_orbslam3_tpu_torch import config as cfgm
+    from multi_orbslam3_tpu_torch.collab import CollabClient, CollabServer, codec
+    from multi_orbslam3_tpu_torch.collab.transport import InProcessTransport
+    from multi_orbslam3_tpu_torch.dataio import synthetic
+    from multi_orbslam3_tpu_torch.eval import ate
+    from multi_orbslam3_tpu_torch.frontend import kernels
+    from multi_orbslam3_tpu_torch.pipeline import loop_closing as lcm
+    from multi_orbslam3_tpu_torch.pipeline.system import TrackState
+    if device == "cuda":
+        start_phase()
+    c = config or cfgm.synthetic_mono()
+    n_agents, F = 2, n_frames
+    seqs = [synthetic.make_sequence(c, n_frames=F, n_points=1200, seed=31,
+                                    trajectory="circle", phase=1.1 + 0.55 * a,
+                                    arc=2.3 * np.pi) for a in range(n_agents)]
+    tr = InProcessTransport()
+    clients = [CollabClient(c, a, tr, device=device) for a in range(n_agents)]
+    server = CollabServer(c, tr, n_agents=n_agents, device=device)
+    server.deterministic = deterministic
+    warm_torch_func(device)
+    timer = StageTimes(lcm, ["verify_candidate_cascade", "correct_loop"])
+    states = [[] for _ in range(n_agents)]
+    server_launches = collections.Counter()
+    cycle_events = []
+    sync(device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(F):
+        for a, cl in enumerate(clients):
+            states[a].append(cl.process_frame(seqs[a].images[i], float(seqs[a].timestamps[i])))
+            cl.comm_cycle()
+        before = kernels.launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        server.comm_cycle()
+        end.record()
+        cycle_events.append((start, end))
+        server_launches.update({k: v - before[k] for k, v in kernels.launch_counts().items()})
+        if on_cycle is not None:
+            on_cycle(i, server, clients, seqs)
+    server.drain_gba()
+    if on_cycle is not None:
+        on_cycle(F, server, clients, seqs)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    stages = timer.close()
+    cycle_ms = [s_.elapsed_time(e) for s_, e in cycle_events]
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20 if device == "cuda" else None
+    gn = gn_step_ms(server, device)
+    ts_all = np.asarray(seqs[0].timestamps) - float(seqs[0].timestamps[0])
+    kf_valid = server.m.kf_valid.cpu().numpy()
+    kf_agent = server.m.kf_agent.cpu().numpy()
+    kf_ts = server.m.kf_timestamp.cpu().numpy()
+    kf_pose = server.m.kf_pose.cpu().numpy()
+    agents, problems = {}, []
+    for a in range(n_agents):
+        sel = np.nonzero(kf_valid & (kf_agent == a))[0]
+        n_ok = sum(st == TrackState.OK for st in states[a])
+        acc = {"server_kfs": int(len(sel)), "frames_ok": int(n_ok)}
+        if len(sel) >= 8:
+            fr = np.asarray([int(np.argmin(np.abs(ts_all - t))) for t in kf_ts[sel]])
+            gt = ate.camera_centers(seqs[a].T_cw[fr])
+            span = float(np.linalg.norm(gt.max(0) - gt.min(0)))
+            acc.update(ate_rmse=float(ate.ate_rmse(ate.camera_centers(kf_pose[sel]), gt)),
+                       span=span)
+            acc["ate_over_span"] = acc["ate_rmse"] / span
+            if not acc["ate_rmse"] < 0.02 * max(span, 1.0):
+                problems.append(f"agent{a} server-arena keyframe ATE {acc['ate_rmse']:.4f} m "
+                                f">= 0.02 x max(span {span:.3f}, 1)")
+        else:
+            problems.append(f"agent{a} has {len(sel)} valid server keyframes (< 8)")
+        if n_ok < 120:
+            problems.append(f"agent{a}: {n_ok} of {F} frames OK (< 120)")
+        acc["client"] = dict(clients[a].stats)
+        agents[f"agent{a}"] = acc
+    st = server.stats
+    res = {"agents_n": n_agents, "frames": F, "merges": st["merges"], "loops": st["loops"],
+           "gba_runs": st["gba_runs"], "gba_rejected": st.get("gba_rejected", 0),
+           "gba_aborted": st.get("gba_aborted", 0), "kf_culled": st.get("kf_culled", 0),
+           "mp_culled": st.get("mp_culled", 0),
+           "kf_outlier_culled": st.get("kf_outlier_culled", 0),
+           "bytes_up": tr.bytes_up, "bytes_down": tr.bytes_down,
+           "total_fps_wall": n_agents * F / wall, "wall_s": wall,
+           "comm_cycle_ms_p50": float(np.percentile(cycle_ms, 50)),
+           "comm_cycle_ms_p90": float(np.percentile(cycle_ms, 90)),
+           "comm_cycle_ms_p99": float(np.percentile(cycle_ms, 99)),
+           **gn,
+           "cascade_ms": stages["verify_candidate_cascade"]["ms"],
+           "correct_loop_ms": stages["correct_loop"]["ms"],
+           "peak_mem_mib_run": peak_mib, "codec_native": codec.native_available(),
+           "server": dict(st), **agents, "launches": launches,
+           "server_launches": dict(server_launches)}
+    check_launches(launches, problems, k1_expected=n_agents * F, stereo_expected=0)
+    valid = server_launches["hamming_best_two_valid_popc"] + \
+        server_launches["hamming_best_two_valid_mma"]
+    if valid <= 0:
+        problems.append("the server's cascade launched no fused validity match")
+    if server_launches["hamming_best_two_projection"] <= 0:
+        problems.append("the server's arena fuse launched no fused projection match")
+    if st["merges"] < 1:
+        problems.append("no merge")
+    if st["gba_runs"] < 1:
+        problems.append("no global BA was adopted")
+    return finish_phase("collab", res, problems), server
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -1324,10 +1579,14 @@ def main() -> int:
     res_rgbd = timed("rgbd", phase_rgbd, stereo_cfg, stereo_seq)
     res_mi = timed("mono_inertial", phase_mono_inertial)
     res_si = timed("stereo_inertial", phase_stereo_inertial)
-    timed("sync_free", phase_sync_free, cfg, slam, seq, stereo_cfg, stereo_slam, stereo_seq)
+    with reproducible():
+        res_collab, server = timed("collab", phase_collab, deterministic=True)
+    timed("sync_free", phase_sync_free, cfg, slam, seq, stereo_cfg, stereo_slam, stereo_seq,
+          server)
     emit("total", seconds_by_phase=seconds,
          total_s=round(time.perf_counter() - T_START, 3))
-    paths = (res, res_off, res_reloc, res_atlas, res_stereo, res_rgbd, res_mi, res_si)
+    paths = (res, res_off, res_reloc, res_atlas, res_stereo, res_rgbd, res_mi, res_si,
+             res_collab)
     entries = []
     for name, k in KERNELS.items():
         variants = []
@@ -1339,7 +1598,11 @@ def main() -> int:
                 "max_abs_err": r["max_abs_err"], "shape": r["shape"],
                 "ms": r["device_ms"], "device_ms": r["device_ms"], "call_ms": r["call_ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "limit": r["limit"], "library_ms": None})
+                "bound_by": r["bound_by"], "limit": r["limit"], "library_ms": None,
+                **({"arena_shapes": [{k: a[k] for k in (
+                    "shape", "inputs", "device_ms", "call_ms", "plain_ms", "bound_ms",
+                    "bound_by", "limit")} for a in r["arena_shapes"]]}
+                   if "arena_shapes" in r else {})})
         head = next(v for v in variants if v["name"] == k["headline"])
         entries.append({**head, "name": name, "source": k["source"],
                         "measured_as": k["headline"],

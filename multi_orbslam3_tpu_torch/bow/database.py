@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from multi_orbslam3_tpu_torch import devices
 from multi_orbslam3_tpu_torch.bow.vocabulary import (
     Vocabulary, assign_words, bow_vector)
 from multi_orbslam3_tpu_torch.map.mapstate import as_index, scatter_rows
@@ -28,8 +29,10 @@ class KeyframeDatabase(NamedTuple):
     agent: torch.Tensor    # (max_kf,) int32 owning agent of each row
 
     @classmethod
-    def empty(cls, max_kf: int, device="cpu") -> "KeyframeDatabase":
-        """No rows; the word table is sized at the first insert."""
+    def empty(cls, max_kf: int, device=None) -> "KeyframeDatabase":
+        """No rows; the word table is sized at the first insert. device
+        None is the CUDA device (``devices.resolve``)."""
+        device = devices.resolve(device, "KeyframeDatabase.empty")
         return cls(word=torch.full((max_kf, 0), -1, dtype=torch.int32, device=device),
                    norm=torch.ones(max_kf, dtype=torch.float32, device=device),
                    active=torch.zeros(max_kf, dtype=torch.bool, device=device),

@@ -19,6 +19,7 @@ from typing import List
 import numpy as np
 import torch
 
+from multi_orbslam3_tpu_torch import devices
 from multi_orbslam3_tpu_torch.frontend.kernels import popcount32
 
 
@@ -83,10 +84,12 @@ def _kmeans_binary(descs: np.ndarray, k: int, rng: np.random.RandomState,
 
 def train_vocabulary(descriptors: np.ndarray, branching: int = 10,
                      depth: int = 4, seed: int = 0, max_train: int = 60000,
-                     device="cpu") -> Vocabulary:
+                     device=None) -> Vocabulary:
     """Hierarchical binary k-means over (M, 8) uint32 descriptors, the same
     numpy k-means as the JAX package (same draws, same tables); the idf
-    histogram assigns words with this package's ``assign_words``."""
+    histogram assigns words with this package's ``assign_words``. device
+    None is the CUDA device (``devices.resolve``)."""
+    device = devices.resolve(device, "train_vocabulary")
     rng = np.random.RandomState(seed)
     if descriptors.shape[0] > max_train:
         descriptors = descriptors[
@@ -123,7 +126,9 @@ def train_vocabulary(descriptors: np.ndarray, branching: int = 10,
     return dataclasses.replace(voc, idf=torch.from_numpy(idf).to(device))
 
 
-def load_vocabulary(path: str, device="cpu") -> Vocabulary:
+def load_vocabulary(path: str, device=None) -> Vocabulary:
+    """device None is the CUDA device (``devices.resolve``)."""
+    device = devices.resolve(device, "load_vocabulary")
     with np.load(path) as z:
         depth = int(z["depth"])
         return from_numpy([z[f"level{i}"] for i in range(depth)], z["idf"],
@@ -137,9 +142,11 @@ def bundled_path(branching: int, depth: int) -> str:
 
 
 def default_vocabulary(branching: int = 10, depth: int = 4, seed: int = 7,
-                       device="cpu") -> Vocabulary:
+                       device=None) -> Vocabulary:
     """The bundled artifact for this shape when one exists; otherwise a
-    tree trained on random bits (the JAX package's fallback, same seed)."""
+    tree trained on random bits (the JAX package's fallback, same seed).
+    device None is the CUDA device (``devices.resolve``)."""
+    device = devices.resolve(device, "default_vocabulary")
     path = bundled_path(branching, depth)
     if os.path.exists(path):
         return load_vocabulary(path, device)

@@ -13,7 +13,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from multi_orbslam3_tpu_torch import interop
+from multi_orbslam3_tpu_torch import devices, interop
 from multi_orbslam3_tpu_torch.map.mapstate import MapState
 
 
@@ -25,7 +25,10 @@ def save_map(path: str, m: MapState, extra: Optional[Dict] = None) -> None:
     np.savez_compressed(path, **arrays)
 
 
-def load_map(path: str, device="cpu") -> tuple[MapState, Dict[str, np.ndarray]]:
+def load_map(path: str, device=None) -> tuple[MapState, Dict[str, np.ndarray]]:
+    """(map, extra arrays); device None is the CUDA device
+    (``devices.resolve``)."""
+    device = devices.resolve(device, "load_map")
     with np.load(path) as z:
         data = {k: z[k] for k in z.files}
     k, n = data["map.kf_mp"].shape

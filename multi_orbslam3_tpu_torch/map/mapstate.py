@@ -193,6 +193,47 @@ def add_keyframe(m: MapState, feats: FrameFeatures, pose: torch.Tensor,
     return m, torch.where(in_cap[0], k, -1)
 
 
+def add_keyframes_batch(m: MapState, poses: torch.Tensor, timestamps: torch.Tensor,
+                        agents: torch.Tensor, parents: torch.Tensor,
+                        assocs: torch.Tensor, uv: torch.Tensor, desc: torch.Tensor,
+                        level: torch.Tensor, angle: torch.Tensor,
+                        feat_valid: torch.Tensor, count,
+                        cams=None) -> tuple[MapState, torch.Tensor]:
+    """Insert up to B keyframes at consecutive slots in one pass (the
+    server's ingest). All inputs are (B, ...); only rows [0, count) are
+    real, the rest go to the sacrificial row. Returns (map, slots (B,)
+    int32, -1 for padding and over-capacity rows)."""
+    B = poses.shape[0]
+    dev = m.device
+    if cams is None:
+        cams = torch.zeros((B, 4), dtype=_F32, device=dev)
+    idx = torch.arange(B, dtype=_I32, device=dev)
+    slots = m.n_kf + idx
+    ok = (idx < count) & (slots < m.max_kf)
+
+    def scat(arr, vals):
+        return scatter_rows(arr, slots, ok, vals.to(dev))
+
+    m = m._replace(
+        kf_pose=scat(m.kf_pose, poses),
+        kf_valid=scat(m.kf_valid, torch.ones(B, dtype=torch.bool, device=dev)),
+        kf_map_id=scat(m.kf_map_id, m.active_map.expand(B)),
+        kf_timestamp=scat(m.kf_timestamp, timestamps),
+        kf_agent=scat(m.kf_agent, agents),
+        kf_parent=scat(m.kf_parent, parents),
+        kf_uv=scat(m.kf_uv, uv),
+        kf_desc=scat(m.kf_desc, desc),
+        kf_level=scat(m.kf_level, level),
+        kf_angle=scat(m.kf_angle, angle),
+        kf_feat_valid=scat(m.kf_feat_valid, feat_valid),
+        kf_mp=scat(m.kf_mp, assocs),
+        kf_ur=scat(m.kf_ur, torch.full((B, m.n_feat), -1.0, dtype=_F32, device=dev)),
+        kf_cam=scat(m.kf_cam, cams),
+        n_kf=m.n_kf + torch.sum(ok.to(_I32)).to(_I32),
+    )
+    return m, torch.where(ok, slots, -1)
+
+
 def _scatter_kf_mp(kf_mp: torch.Tensor, kf, feat: torch.Tensor,
                    write: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """kf_mp[kf, feat[b]] = vals[b] where write[b] (flat sacrificial cell)."""
@@ -243,6 +284,55 @@ def add_mappoints(m: MapState, pos: torch.Tensor, ok: torch.Tensor,
     return m._replace(kf_mp=kfmp), slots
 
 
+def add_mappoints_raw(m: MapState, pos: torch.Tensor, ok: torch.Tensor,
+                      desc: torch.Tensor, ref_kf: torch.Tensor,
+                      agent=0) -> tuple[MapState, torch.Tensor]:
+    """Batch-insert landmarks without writing feature associations (the
+    network-ingest path: associations arrive with the keyframes). ref_kf
+    (B,) is each landmark's reference keyframe slot. Returns (map, slots
+    (B,) int32, -1 where not created)."""
+    dev = m.device
+    pos, ok, desc = pos.to(dev), ok.to(dev), desc.to(dev)
+    ref_kf = ref_kf.to(dev)
+    B = pos.shape[0]
+    okc = ok.to(_I32)
+    offset = torch.cumsum(okc, 0, dtype=_I32) - 1
+    slots = torch.where(ok, m.n_mp + offset, NO_MP)
+    write = (slots >= 0) & (slots < m.max_mp)
+    slots = torch.where(write, slots, NO_MP)
+
+    ref_safe = torch.clamp(ref_kf, 0, m.max_kf - 1).long()
+    R = m.kf_pose[ref_safe, :3, :3]
+    t = m.kf_pose[ref_safe, :3, 3]
+    cam_center = -torch.einsum("bji,bj->bi", R, t)
+    view = pos - cam_center
+    dist = torch.linalg.norm(view, dim=-1) + 1e-8
+
+    def upd(arr, val):
+        return scatter_rows(arr, slots, write, val)
+
+    m = m._replace(
+        mp_pos=upd(m.mp_pos, pos),
+        mp_valid=upd(m.mp_valid, True),
+        mp_map_id=upd(m.mp_map_id, m.active_map.expand(B)),
+        mp_agent=upd(m.mp_agent, int(agent)),
+        mp_desc=upd(m.mp_desc, desc),
+        mp_normal=upd(m.mp_normal, view / dist[:, None]),
+        mp_min_dist=upd(m.mp_min_dist, dist * 0.5),
+        mp_max_dist=upd(m.mp_max_dist, dist * 2.0),
+        mp_ref_kf=upd(m.mp_ref_kf, ref_kf),
+        n_mp=torch.clamp(m.n_mp + torch.sum(okc), max=m.max_mp).to(_I32))
+    return m, slots
+
+
+def add_mappoints_raw_padded(m: MapState, pos, ok, desc, ref_kf,
+                             agent=0) -> tuple[MapState, torch.Tensor]:
+    """The JAX package pads the batch to a power-of-two shape class to
+    bound its compilations; padding rows create nothing, so here this is
+    add_mappoints_raw on the batch as given. Returns slots of the rows."""
+    return add_mappoints_raw(m, pos, ok, desc, ref_kf, agent)
+
+
 def kf_intrinsics(m: MapState, kf, K_default: cam.PinholeK) -> cam.PinholeK:
     """Per-keyframe pinhole intrinsics; an all-zero kf_cam row means the
     caller's default camera. `kf` may be a slot or an index tensor."""
@@ -258,19 +348,24 @@ def kf_intrinsics(m: MapState, kf, K_default: cam.PinholeK) -> cam.PinholeK:
 def covisibility_row(m: MapState, kf) -> torch.Tensor:
     """(K,) int32 shared-landmark counts between keyframe `kf` and every
     keyframe (0 for `kf` itself)."""
+    return covisibility_rows(m, as_index(kf, m.device).reshape(1))[0]
+
+
+def covisibility_rows(m: MapState, kfs: torch.Tensor) -> torch.Tensor:
+    """covisibility_row for a batch of keyframes (A,) in one pass: (A, K)
+    int32, a row's own keyframe 0. Negative slots count as slot 0."""
     P = m.max_mp
-    kf = as_index(kf, m.device)
-    row_kf = take(m.kf_mp, kf)
-    row_ok = (row_kf >= 0) & take(m.kf_feat_valid, kf)
-    member = torch.zeros(P + 1, dtype=_F32, device=m.device)
-    member = member.scatter_reduce(0, torch.where(row_ok, row_kf, P).long(),
+    kfs = torch.clamp(kfs.to(m.device).long(), min=0)
+    row_kf = m.kf_mp[kfs]                                       # (A, N)
+    row_ok = (row_kf >= 0) & m.kf_feat_valid[kfs]
+    member = torch.zeros((kfs.shape[0], P + 1), dtype=_F32, device=m.device)
+    member = member.scatter_reduce(1, torch.where(row_ok, row_kf, P).long(),
                                    row_ok.to(_F32), "amax", include_self=True)
     member = member * torch.cat([m.mp_valid, m.mp_valid.new_zeros(1)]).to(_F32)
     ok = (m.kf_mp >= 0) & m.kf_feat_valid & m.kf_valid[:, None]
-    slot = torch.where(ok, m.kf_mp, P).long()
-    counts = torch.sum(member[slot], dim=1).to(_I32)
-    return scatter_rows(counts, kf.reshape(1), torch.ones(1, dtype=torch.bool,
-                                                          device=m.device), 0)
+    slot = torch.where(ok, m.kf_mp, P).long()                   # (K, N)
+    counts = torch.sum(member[:, slot], dim=2).to(_I32)         # (A, K)
+    return counts.scatter(1, kfs[:, None], 0)
 
 
 def kf_mp_mask(m: MapState) -> torch.Tensor:
@@ -294,6 +389,32 @@ def covisibility_matrix(m: MapState) -> torch.Tensor:
     A = kf_mp_mask(m).to(_F32)
     W = A @ A.T
     return (W - torch.diag(torch.diagonal(W))).to(_I32)
+
+
+def erase_keyframe(m: MapState, kf) -> MapState:
+    """Tombstone keyframe `kf` (an int or a 0-d tensor): its associations
+    are dropped and its children re-parent to its parent."""
+    kf = as_index(kf, m.device)
+    one = torch.ones(1, dtype=torch.bool, device=m.device)
+    parent = take(m.kf_parent, kf)
+    return m._replace(
+        kf_valid=scatter_rows(m.kf_valid, kf.reshape(1), one, False),
+        kf_mp=scatter_rows(m.kf_mp, kf.reshape(1), one, NO_MP),
+        kf_parent=torch.where(m.kf_parent == kf, parent, m.kf_parent))
+
+
+def erase_mappoints(m: MapState, slots: torch.Tensor) -> MapState:
+    """Tombstone landmarks: clear validity and every keyframe association.
+    slots (B,), -1 entries ignored."""
+    slots = slots.to(m.device)
+    ok = slots >= 0
+    P = m.max_mp
+    mp_valid = scatter_rows(m.mp_valid, slots, ok, False)
+    erased = scatter_rows(torch.zeros(P + 1, dtype=torch.bool, device=m.device),
+                          slots, ok, True)
+    point = torch.where(m.kf_mp >= 0, m.kf_mp, P).long()
+    return m._replace(mp_valid=mp_valid,
+                      kf_mp=torch.where(erased[point], NO_MP, m.kf_mp))
 
 
 def update_found_visible(m: MapState, feat_mp: torch.Tensor,

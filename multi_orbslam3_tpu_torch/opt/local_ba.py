@@ -53,6 +53,11 @@ def _obs_terms(poses, points, obs: BAObservations, K: cam.PinholeK, bf=0.0):
     return r, J_cam, J_pt, p_c[..., 2] <= 1e-3
 
 
+def _chi2(r: torch.Tensor, inv_sigma2: torch.Tensor) -> torch.Tensor:
+    """Per-observation chi2: squared residual norm times information."""
+    return torch.sum(r * r, dim=-1) * inv_sigma2
+
+
 def inv3x3(A: torch.Tensor) -> torch.Tensor:
     """Batched closed-form 3x3 inverse (adjugate / det)."""
     a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]

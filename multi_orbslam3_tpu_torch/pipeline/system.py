@@ -22,6 +22,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from multi_orbslam3_tpu_torch import devices
 from multi_orbslam3_tpu_torch.bow import database as dbm
 from multi_orbslam3_tpu_torch.bow import vocabulary as vocm
 from multi_orbslam3_tpu_torch.config import SystemConfig
@@ -81,13 +82,7 @@ class MonoSlam:
                  device=None):
         self.cfg = config
         self.agent = agent_id
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "MonoSlam: no CUDA device, and the system does not fall "
-                    'back to the CPU by itself; pass device="cpu" to run there')
-            device = "cuda"
-        self.device = torch.device(device)
+        self.device = devices.resolve(device, "MonoSlam")
         self.K = cam.intrinsics_from_config(config.camera, self.device)
         c = config.camera
         self._cam4 = self._upload(np.array([c.fx, c.fy, c.cx, c.cy], np.float32))

@@ -25,7 +25,7 @@ def words_i32(a):
 @pytest.fixture(scope="module")
 def vocs():
     """The bundled k=10 L=5 vocabulary, loaded by each package."""
-    return jvoc.default_vocabulary(10, 5), tvoc.default_vocabulary(10, 5)
+    return jvoc.default_vocabulary(10, 5), tvoc.default_vocabulary(10, 5, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -79,7 +79,7 @@ def test_train_vocabulary_random_bits_matches_jax():
     """The random-bit fallback at the small config's shape (k=6, L=3):
     level tables exactly, idf within 1e-6."""
     jv = jvoc.default_vocabulary(6, 3)
-    tv = tvoc.default_vocabulary(6, 3)
+    tv = tvoc.default_vocabulary(6, 3, device="cpu")
     assert tv.n_words == jv.n_words == 216
     for a, b in zip(jv.levels, tv.levels):
         np.testing.assert_array_equal(b.numpy().view(np.uint32), np.asarray(a))
@@ -109,7 +109,7 @@ def test_database_add_batch_erase_query_match_jax(vocs):
     desc = rng.randint(0, 2 ** 32, (8, n, 8), dtype=np.uint64).astype(np.uint32)
     valid = rng.rand(8, n) < 0.9
     dj = jdb.KeyframeDatabase.empty(max_kf, jv.n_words)
-    dt = tdb.KeyframeDatabase.empty(max_kf)
+    dt = tdb.KeyframeDatabase.empty(max_kf, device="cpu")
     for k in range(4):
         dj, wj = jdb.add_keyframe_bow(dj, jv, jnp.int32(k), jnp.asarray(desc[k]),
                                       jnp.asarray(valid[k]), agent=k % 2)
@@ -145,7 +145,7 @@ def test_query_vector_matches_query_and_rejects_a_missing_voc(vocs):
     rng = np.random.RandomState(6)
     d = words_i32(rng.randint(0, 2 ** 32, (64, 8), dtype=np.uint64).astype(np.uint32))
     ok = torch.ones(64, dtype=torch.bool)
-    db, w = tdb.add_keyframe_bow(tdb.KeyframeDatabase.empty(8), tv, 1, d, ok)
+    db, w = tdb.add_keyframe_bow(tdb.KeyframeDatabase.empty(8, device="cpu"), tv, 1, d, ok)
     excl = torch.zeros(8, dtype=torch.bool)
     v = tvoc.bow_vector(tv, w)
     assert torch.equal(tdb.query_vector(db, tv, v, excl), tdb.query(db, tv, d, ok, excl))

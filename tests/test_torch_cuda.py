@@ -419,3 +419,86 @@ def test_correct_loop_on_the_card_matches_the_cpu(dev):
         got.append((m2.kf_pose.cpu().numpy(), m2.mp_pos.cpu().numpy()))
     np.testing.assert_allclose(got[0][0], got[1][0], atol=1e-3)
     np.testing.assert_allclose(got[0][1], got[1][1], atol=1e-3)
+
+
+@pytest.mark.parametrize("keep,inner", [(0.04, "popc"), (0.04, "mma"), (0.75, "popc"),
+                                        (0.75, "mma")])
+def test_validity_match_at_the_collab_arena_shape(dev, keep, inner):
+    """32768 x 32768, the collaborative server's map x map cascade (two
+    agents of 16384 landmarks), about 4% and 75% valid: exact."""
+    n = 32768
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(keep * 100))
+    words = lambda: torch.randint(-2 ** 31, 2 ** 31 - 1, (n, 8), generator=g, device=dev,
+                                  dtype=torch.int64).to(torch.int32)
+    d1, d2 = words(), words()
+    v1 = torch.rand(n, generator=g, device=dev) < keep
+    v2 = torch.rand(n, generator=g, device=dev) < keep
+    got = kernels.hamming_best_two_valid(d1, v1, d2, v2, inner=inner)
+    torch.cuda.synchronize()
+    want = kernels.hamming_best_two_valid_ref(d1, v1, d2, v2, row_block=2048)
+    for gg, w, what in zip(got, want, ("idx", "best", "second", "argmin_row")):
+        assert gg.dtype == w.dtype and torch.equal(gg, w), what
+
+
+def test_projection_match_at_the_collab_arena_shape(dev):
+    """32768 x 1024, the server's arena fuse (fuse_into_keyframe on the
+    arena): exact."""
+    c = dict(_projection_case(32768, 1024, dev), level_slack=1)
+    got = kernels.hamming_best_two_projection(**c)
+    torch.cuda.synchronize()
+    want = kernels.hamming_best_two_projection_ref(**c)
+    for gg, w, what in zip(got, want, ("idx", "best", "second")):
+        assert gg.dtype == w.dtype and torch.equal(gg, w), what
+    assert int((got[1] < kernels.BIG).sum()) > 0
+
+
+def _gba_problem(d, n_kf=24, n_mp=800, n_feat=64, seed=0):
+    """Keyframes along x, landmarks ahead of them, noisy projections and
+    noisy landmark positions; the first keyframe fixed."""
+    from multi_orbslam3_tpu_torch.geometry import camera as cam
+    from multi_orbslam3_tpu_torch.opt.local_ba import BAObservations
+    rng = np.random.RandomState(seed)
+    pts = np.stack([rng.uniform(-6, 2, n_mp), rng.uniform(-2, 2, n_mp),
+                    rng.uniform(4, 10, n_mp)], 1).astype(np.float32)
+    poses = np.tile(np.eye(4, dtype=np.float32), (n_kf, 1, 1))
+    poses[:, 0, 3] = 0.15 * np.arange(n_kf)
+    kf = np.repeat(np.arange(n_kf), n_feat)
+    pt = np.concatenate([rng.choice(n_mp, n_feat, replace=False) for _ in range(n_kf)])
+    p_c = pts[pt] + poses[kf, :3, 3]
+    uv = np.stack([300 * p_c[:, 0] / p_c[:, 2] + 320, 300 * p_c[:, 1] / p_c[:, 2] + 240], 1)
+    uv += rng.randn(*uv.shape) * 0.5
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a)).to(d, dt)  # noqa: E731
+    obs = BAObservations(kf=t(kf, torch.int32), pt=t(pt, torch.int32), uv=t(uv),
+                         inv_sigma2=torch.ones(len(kf), device=d),
+                         valid=t(rng.rand(len(kf)) < 0.9, torch.bool))
+    K = cam.PinholeK(*(torch.tensor(v, device=d) for v in (300.0, 300.0, 320.0, 240.0)))
+    fixed = torch.zeros(n_kf, dtype=torch.bool, device=d)
+    fixed[0] = True
+    noisy = pts + rng.randn(n_mp, 3).astype(np.float32) * 0.05
+    return t(poses), fixed, t(noisy), torch.ones(n_mp, dtype=torch.bool, device=d), obs, K
+
+
+def test_global_bundle_adjust_on_the_card_matches_the_cpu(dev):
+    """Two GN steps of 20 CG iterations on the card against the CPU: the
+    card's index_add order differs, so within 1e-3."""
+    from multi_orbslam3_tpu_torch.opt import global_ba
+    out = []
+    for d in (dev, torch.device("cpu")):
+        r = global_ba.global_bundle_adjust(*_gba_problem(d), iters=2, cg_iters=20)
+        out.append([x.cpu().numpy() for x in (r.poses, r.points, r.chi2, r.chi2_in)])
+    for a, b in zip(*out):
+        np.testing.assert_allclose(a, b, atol=1e-3, rtol=1e-3)
+    assert out[0][2] < out[0][3]
+
+
+def test_collab_entry_points_run_on_the_card(dev):
+    """CollabClient and CollabServer without a device argument live on the
+    card (without one they raise: tests/test_torch_no_jax.py)."""
+    from multi_orbslam3_tpu_torch.collab import (CollabClient, CollabServer,
+                                                 InProcessTransport)
+    c = cfg.small_synthetic()
+    tr = InProcessTransport()
+    assert CollabClient(c, 0, tr).slam.m.kf_pose.device.type == "cuda"
+    server = CollabServer(c, tr, 2)
+    assert server.m.kf_pose.device.type == "cuda" and server.db.word.device.type == "cuda"

@@ -82,7 +82,7 @@ def port_run():
     """The port's MonoSlam after 30 frames of the small config."""
     seq = synthetic.make_sequence(CT, n_frames=40, n_points=500, seed=7,
                                   trajectory="forward")
-    voc = tvoc.default_vocabulary(CT.bow.branching, CT.bow.levels)
+    voc = tvoc.default_vocabulary(CT.bow.branching, CT.bow.levels, device="cpu")
     slam = MonoSlam(CT, vocabulary=voc, device="cpu")
     for i in range(30):
         slam.process_frame(seq.images[i], float(seq.timestamps[i]))
@@ -114,7 +114,7 @@ def test_checkpoint_written_by_jax_loads_in_the_port(tmp_path, port_run):
     mj = jms.MapState(**{f: jnp.asarray(want[f]) for f in jms.MapState._fields})
     path = str(tmp_path / "map_j.npz")
     jckpt.save_map(path, mj, extra={"note": np.float32(1.5)})
-    mt, extra = tckpt.load_map(path)
+    mt, extra = tckpt.load_map(path, device="cpu")
     assert float(extra["note"]) == 1.5
     assert mt.kf_desc.dtype == torch.int32 and mt.mp_desc.dtype == torch.int32
     got = interop.map_to_numpy(mt)
@@ -126,7 +126,7 @@ def test_checkpoint_written_by_jax_loads_in_the_port(tmp_path, port_run):
                if k not in ("map.kf_ur", "map.kf_cam", "map.mp_redirect")}
     old_path = str(tmp_path / "map_old.npz")
     np.savez_compressed(old_path, **old)
-    mo = tckpt.load_map(old_path)[0]
+    mo = tckpt.load_map(old_path, device="cpu")[0]
     mo_j = jckpt.load_map(old_path)[0]
     for f in ("kf_ur", "kf_cam", "mp_redirect"):
         np.testing.assert_array_equal(getattr(mo, f).numpy(),

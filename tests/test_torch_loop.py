@@ -279,10 +279,10 @@ def test_pr_step_matches_jax(loop_map):
     """Place recognition on keyframe 11 after 0-10 are in the database:
     scores within 1e-5, the same database rows."""
     mj, mt, _, _ = loop_map
-    jv, tv = jvoc.default_vocabulary(6, 3), tvoc.default_vocabulary(6, 3)
+    jv, tv = jvoc.default_vocabulary(6, 3), tvoc.default_vocabulary(6, 3, device="cpu")
     from multi_orbslam3_tpu.bow import database as jdb
     from multi_orbslam3_tpu_torch.bow import database as tdb
-    dj, dt = jdb.KeyframeDatabase.empty(16), tdb.KeyframeDatabase.empty(16)
+    dj, dt = jdb.KeyframeDatabase.empty(16), tdb.KeyframeDatabase.empty(16, device="cpu")
     for k in range(12):
         sj, dj = jlc._pr_step(dj, jv, mj, jnp.int32(k))
         st, dt = tlc._pr_step(dt, tv, mt, k)

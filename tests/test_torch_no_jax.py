@@ -130,3 +130,137 @@ def test_chip_smoke_without_a_gpu_exits_nonzero_and_prints_no_result():
     assert r.returncode != 0
     assert "no CUDA device" in r.stderr
     assert '"ok"' not in r.stdout
+
+
+def _changed_lines(a: str, b: str) -> tuple:
+    import difflib
+    removed, added = [], []
+    for line in difflib.unified_diff(a.splitlines(), b.splitlines(), lineterm="", n=0):
+        if line.startswith("-") and not line.startswith("---"):
+            removed.append(line[1:])
+        elif line.startswith("+") and not line.startswith("+++"):
+            added.append(line[1:])
+    return removed, added
+
+
+@pytest.mark.parametrize("name", ["transport.py", "protocol.py", "codec.py"])
+def test_the_ports_wire_modules_are_copies(name):
+    """transport.py is byte for byte the JAX package's; protocol.py differs
+    in its import of the codec only; codec.py only where its native half is
+    built (csrc/ -> _build/, keyed by a hash, instead of native/)."""
+    a = (REPO / "multi_orbslam3_tpu" / "collab" / name).read_text()
+    b = (PORT / "collab" / name).read_text()
+    removed, added = _changed_lines(a, b)
+    if name == "transport.py":
+        assert a == b
+    elif name == "protocol.py":
+        assert removed == ["from multi_orbslam3_tpu.collab import codec"]
+        assert added == ["from multi_orbslam3_tpu_torch.collab import codec"]
+    else:
+        text = "\n".join(removed + added)
+        assert all(("native" in ln or "so" in ln or "src" in ln or "_build" in ln
+                    or ln.strip() in ("", "return None",
+                                      "if not os.path.exists(src):",
+                                      "if not os.path.exists(so):"))
+                   for ln in removed), removed
+        assert "def _build_path" in text and "libmo3codec_" in text
+        assert len(removed) <= 8 and len(added) <= 20, (removed, added)
+        # everything from the pack/unpack API down is unchanged
+        tail = a[a.index("# pack / unpack"):]
+        assert tail == b[b.index("# pack / unpack"):]
+
+
+def test_the_codec_source_is_a_byte_identical_copy():
+    assert (REPO / "native" / "mo3_codec.cpp").read_bytes() == \
+        (PORT / "csrc" / "mo3_codec.cpp").read_bytes()
+
+
+def test_the_ports_codec_builds_its_own_library():
+    """Into _build/ next to the package, never native/libmo3codec.so."""
+    from multi_orbslam3_tpu_torch.collab import codec
+    assert codec.native_available()
+    src = str(PORT / "csrc" / "mo3_codec.cpp")
+    so = codec._build_path(src)
+    assert Path(so).parent == PORT / "_build" and Path(so).exists()
+    assert Path(codec._lib._name) == Path(so)
+
+
+def test_socket_transport_round_trip_of_a_delta():
+    """The port's socket transport carries a packed delta both ways."""
+    import time
+    from multi_orbslam3_tpu_torch.collab import protocol
+    from multi_orbslam3_tpu_torch.collab.transport import (SocketTransportClient,
+                                                           SocketTransportServer)
+    payload = protocol.MapDelta(agent=1, seq=3, erased_kf=np.asarray([5], np.int32)).to_bytes()
+    srv = SocketTransportServer()
+    cli = SocketTransportClient(agent=1, host="127.0.0.1", port=srv.port)
+    try:
+        cli.send_up(1, payload)
+        for _ in range(200):
+            msgs = srv.poll_up(1)
+            if msgs:
+                break
+            time.sleep(0.01)
+        assert msgs == [payload]
+        assert protocol.MapDelta.from_bytes(msgs[0]).erased_kf.tolist() == [5]
+        srv.send_down(1, payload[::-1])
+        for _ in range(200):
+            msgs = cli.poll_down(1)
+            if msgs:
+                break
+            time.sleep(0.01)
+        assert msgs == [payload[::-1]]
+    finally:
+        cli.close()
+        srv.close()
+
+
+_HELPERS_WITHOUT_A_DEVICE = """
+import torch
+assert not torch.cuda.is_available()
+from multi_orbslam3_tpu_torch import config
+from multi_orbslam3_tpu_torch.bow import database, vocabulary
+from multi_orbslam3_tpu_torch.collab import CollabClient, CollabServer, InProcessTransport
+from multi_orbslam3_tpu_torch.dataio import checkpoint
+from multi_orbslam3_tpu_torch.map import mapstate
+import numpy as np, tempfile, os
+path = os.path.join(tempfile.mkdtemp(), "m.npz")
+checkpoint.save_map(path, mapstate.empty_map(2, 4, 8))
+c = config.small_synthetic()
+calls = {
+    "default_vocabulary": lambda d: vocabulary.default_vocabulary(6, 3, device=d),
+    "load_vocabulary": lambda d: vocabulary.load_vocabulary(vocabulary.bundled_path(10, 4), device=d),
+    "train_vocabulary": lambda d: vocabulary.train_vocabulary(
+        np.random.RandomState(0).randint(0, 2 ** 32, (200, 8), dtype=np.uint32), 3, 2, device=d),
+    "KeyframeDatabase.empty": lambda d: database.KeyframeDatabase.empty(4, device=d),
+    "load_map": lambda d: checkpoint.load_map(path, device=d),
+    "CollabClient": lambda d: CollabClient(c, 0, InProcessTransport(), device=d),
+    "CollabServer": lambda d: CollabServer(c, InProcessTransport(), 2, device=d),
+}
+for name, fn in calls.items():
+    try:
+        fn(None)
+        print(name, "ran")
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e) and name in str(e), e
+        print(name, "raised")
+    fn("cpu")
+try:
+    CollabClient(c, 0, InProcessTransport(), inertial=True, device="cpu")
+except NotImplementedError as e:
+    assert "16b" in str(e)
+    print("inertial client raised")
+"""
+
+
+def test_helpers_and_collab_entry_points_default_to_the_card():
+    """device=None is the CUDA device for the vocabulary, database and
+    checkpoint helpers and for CollabClient/CollabServer: without a card
+    each raises, and device="cpu" runs."""
+    r = _python("-c", _HELPERS_WITHOUT_A_DEVICE)
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.strip().splitlines()
+    assert lines[:-1] == [f"{n} raised" for n in (
+        "default_vocabulary", "load_vocabulary", "train_vocabulary",
+        "KeyframeDatabase.empty", "load_map", "CollabClient", "CollabServer")]
+    assert lines[-1] == "inertial client raised"

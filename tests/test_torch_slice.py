@@ -184,7 +184,7 @@ def test_port_end_to_end(e2e_seq, pipelined):
 def small_voc():
     """The small config's vocabulary (trained once, shared by the tests)."""
     c = cfg.small_synthetic()
-    return tvoc.default_vocabulary(c.bow.branching, c.bow.levels)
+    return tvoc.default_vocabulary(c.bow.branching, c.bow.levels, device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -671,7 +671,7 @@ def test_repair_loop_closing_keeps_the_scale_of_a_stereo_map(monkeypatch):
 
     monkeypatch.setattr(tlc.LoopCloser, "on_keyframe", fake)
     from multi_orbslam3_tpu_torch.bow import vocabulary as tvoc
-    voc = tvoc.default_vocabulary(6, 3)
+    voc = tvoc.default_vocabulary(6, 3, device="cpu")
     for cls in (tsys.MonoSlam, tss.StereoSlam, tss.RGBDSlam):
         slam = cls(CT, vocabulary=voc, device="cpu")
         slam.loop_closer._owner = slam
