@@ -1,5 +1,6 @@
-"""Collaborative client: MonoSlam with an uplink outbox and a corrections
-inbox (counterpart of multi_orbslam3_tpu/collab/client.py).
+"""Collaborative client: MonoSlam (or MonoInertialSlam) with an uplink
+outbox and a corrections inbox (counterpart of
+multi_orbslam3_tpu/collab/client.py).
 
 Loop closing stays off (the server owns place recognition). New and
 changed keyframes and landmarks are drained into MapDelta envelopes under
@@ -9,6 +10,12 @@ the server wins after optimization, the client wins for fresh odometry.
 The map lives on the client's device. Each uplink build reads one host
 snapshot of it (``host.fetch``: one synchronisation), and every downlink
 correction is written back as a functional update of the map's tensors.
+
+An inertial agent publishes nothing before its visual-inertial
+initialisation, ships each keyframe's preintegration window and velocity
+with it, and carries its velocities through every gauge change and
+correction. A keyframe the server culls hands its window to the next own
+keyframe (or to the running accumulator when it was the newest).
 """
 
 from __future__ import annotations
@@ -24,11 +31,10 @@ from multi_orbslam3_tpu_torch.collab.host import desc_words, fetch
 from multi_orbslam3_tpu_torch.collab.transport import Transport
 from multi_orbslam3_tpu_torch.config import SystemConfig
 from multi_orbslam3_tpu_torch.frontend.extractor import FrameFeatures
+from multi_orbslam3_tpu_torch.imu import preintegration as pre
 from multi_orbslam3_tpu_torch.map import mapstate as ms
+from multi_orbslam3_tpu_torch.pipeline.inertial_system import MonoInertialSlam, _Window
 from multi_orbslam3_tpu_torch.pipeline.system import MonoSlam, TrackState
-
-NEXT_SLICE = ("the inertial collaborative client is the next slice of the "
-              "PyTorch port (ROADMAP queue A, item 16b)")
 
 
 class CollabClient:
@@ -37,15 +43,13 @@ class CollabClient:
 
     def __init__(self, config: SystemConfig, agent_id: int,
                  transport: Transport, inertial: bool = False, device=None):
-        if inertial:
-            raise NotImplementedError(NEXT_SLICE)
         self.device = devices.resolve(device, "CollabClient")
         self.cfg = config
         self.agent = agent_id
         self.transport = transport
-        self.inertial = False
-        self.slam = MonoSlam(config, agent_id, enable_loop_closing=False,
-                             device=self.device)
+        self.inertial = inertial
+        self.slam = (MonoInertialSlam if inertial else MonoSlam)(
+            config, agent_id, enable_loop_closing=False, device=self.device)
         c = config.camera
         self._cam4 = np.array([c.fx, c.fy, c.cx, c.cy], np.float32)
         self._sent_kf = 0               # slots < _sent_kf were sent in full
@@ -83,6 +87,10 @@ class CollabClient:
     def process_frame(self, img, timestamp: float):
         return self.slam.process_frame(img, timestamp)
 
+    def process_frame_imu(self, img, timestamp: float, acc: np.ndarray,
+                          gyro: np.ndarray, dt: np.ndarray):
+        return self.slam.process_frame_imu(img, timestamp, acc, gyro, dt)
+
     # ------------------------------------------------------------------
     def comm_cycle(self) -> None:
         """Ingest corrections, then publish a delta. Idle cycles (no
@@ -118,6 +126,10 @@ class CollabClient:
 
     # ------------------------------------------------------------------
     def _build_delta(self) -> Optional[protocol.MapDelta]:
+        # an inertial agent publishes nothing before its visual-inertial
+        # initialisation (the reference's GetInertialBA1 uplink gate)
+        if self.inertial and not self.slam.inertial_ready:
+            return None
         m = self.slam.m
         comm = self.cfg.comm
         snap = fetch(dict(
@@ -167,12 +179,22 @@ class CollabClient:
             mp_server = np.where(is_f, self._foreign_mp_rev[np.maximum(mp_raw, 0)],
                                  -1).astype(np.int32)
             mp_local = np.where(is_f, -1, mp_raw)
+            # the preintegration window since the previous own keyframe and
+            # the body velocity travel with each keyframe
+            imu_rows = None
+            if self.inertial:
+                imu_rows = np.zeros((B, pre.FLAT_DIM + 3), np.float32)
+                for b, lid in enumerate(ids):
+                    p = self.slam.kf_preint[int(lid)]
+                    if p is not None:
+                        imu_rows[b, :pre.FLAT_DIM] = pre.preint_to_flat(p)
+                    imu_rows[b, pre.FLAT_DIM:] = self.slam.kf_velocity[int(lid)]
             kfs = protocol.KFPayload(
                 agent=self.agent, local_id=ids.astype(np.int32),
                 timestamp=snap["kf_timestamp"][ids], ref_ids=ref_ids, T_rel=T_rel,
                 T_abs=poses, is_first=(ids == 0), uv=rows["uv"], desc=rows["desc"],
                 level=rows["level"], angle=rows["angle"], feat_valid=rows["fv"],
-                mp_local=mp_local, mp_server=mp_server, imu=None)
+                mp_local=mp_local, mp_server=mp_server, imu=imu_rows)
             self._sent_kf_pose[ids] = poses
             new_kf_hi = int(ids[-1]) + 1 if len(own_new) == comm.client_kf_bound else n_kf
         else:
@@ -241,7 +263,8 @@ class CollabClient:
         return protocol.MapDelta(
             agent=self.agent, seq=self._seq, kfs=kfs, kf_updates=kf_updates,
             mps=mps, mp_updates=mp_updates, closest_kf=self.slam.ref_kf,
-            scale=scale, R_gw=R_gw, inertial=self.inertial, T_bc=None,
+            scale=scale, R_gw=R_gw, inertial=self.inertial,
+            T_bc=self.slam.T_bc.astype(np.float32).copy() if self.inertial else None,
             cam=self._cam4.copy())
 
     # ------------------------------------------------------------------
@@ -317,6 +340,7 @@ class CollabClient:
                 for lid in delta.erased_kf:
                     lid = int(lid)
                     if lid != self.slam.ref_kf and 0 <= lid < n_kf:
+                        self._merge_preint_over(lid, n_kf)
                         m = ms.erase_keyframe(m, lid)
             if delta.erased_mp is not None:
                 # our landmarks the server culled: the local copy dies too,
@@ -414,6 +438,17 @@ class CollabClient:
         # live pose: a right-multiplication leaves T_vel invariant
         self.slam.T_cur = self._xf_poses(np.asarray(self.slam.T_cur)[None], R32, t32,
                                          s32)[0].astype(np.float32)
+        if self.inertial:
+            if self.slam._last_ok_T is not None:
+                self.slam._last_ok_T = self._xf_poses(
+                    np.asarray(self.slam._last_ok_T)[None], R32, t32, s32)[0].astype(
+                        np.float32)
+            # world-frame velocities: v' = (1/s) R^T v
+            A = R32.T / s32
+            self.slam.v_cur = (A @ self.slam.v_cur).astype(np.float32)
+            self.slam.kf_velocity[:n_kf] = self.slam.kf_velocity[:n_kf] @ A.T
+            self.slam._prev_state = None
+            self.slam._v_fresh = True
         self.slam._T_cur_dev = None
         # bookkeeping mirrors follow, so no spurious updates go up
         sent_kf = np.zeros_like(own_kf)
@@ -483,11 +518,45 @@ class CollabClient:
                 xh = np.concatenate([mp[idx], np.ones((len(idx), 1))], 1)
                 mp[idx] = np.einsum("kij,kj->ki", A, xh)[:, :3].astype(np.float32)
         self.slam.m = m._replace(kf_pose=self._up(poses_new), mp_pos=self._up(mp))
-        # the live pose chains through the newest corrected keyframe
+        # the live pose chains through the newest corrected keyframe; a
+        # shared right-multiplication leaves T_vel invariant
         aN = int(corr[-1])
         chain = inv_old_corr[aN] @ poses_new[aN]
         self.slam.T_cur = (np.asarray(self.slam.T_cur) @ chain).astype(np.float32)
         self.slam._T_cur_dev = None
+        if self.inertial:
+            if self.slam._last_ok_T is not None:
+                self.slam._last_ok_T = (np.asarray(self.slam._last_ok_T) @ chain).astype(
+                    np.float32)
+            # world-frame velocities follow the anchor's world change:
+            # p' = T_a'^-1 T_a p, so v' = R_W v
+            R_w = (np.linalg.inv(poses_new[aN]) @ poses_old[aN])[:3, :3].astype(np.float32)
+            self.slam.v_cur = (R_w @ self.slam.v_cur).astype(np.float32)
+            self.slam.kf_velocity[:n_kf] = self.slam.kf_velocity[:n_kf] @ R_w.T
+            # v_cur is in the new gauge already: block _post_track's
+            # finite-difference re-anchor, whose previous pose is in the old
+            self.slam._prev_state = None
+            self.slam._v_fresh = True
+
+    # ------------------------------------------------------------------
+    def _merge_preint_over(self, lid: int, n_kf: int) -> None:
+        """A keyframe the server culled hands its preintegration window to
+        the next own keyframe, so the inertial chain stays unbroken; when
+        it was the newest own keyframe, the window folds into the running
+        accumulator, which then spans from the previous survivor."""
+        if not self.inertial or self.slam.kf_preint[lid] is None:
+            return
+        slam = self.slam
+        win = _Window(slam.kf_preint[lid], float(slam.kf_preint_dt[lid]))
+        slam._set_kf_window(lid, None)
+        for succ in range(lid + 1, n_kf):
+            if self._is_foreign_kf[succ]:
+                continue
+            if slam.kf_preint[succ] is not None:
+                slam._set_kf_window(succ, win.merged(
+                    _Window(slam.kf_preint[succ], float(slam.kf_preint_dt[succ]))))
+            return
+        slam._accum = win if slam._accum is None else win.merged(slam._accum)
 
     # ------------------------------------------------------------------
     def _apply_foreign_updates(self, m, delta: protocol.MapDelta):

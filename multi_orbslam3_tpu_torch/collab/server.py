@@ -11,14 +11,17 @@ landmarks (counterpart of multi_orbslam3_tpu/collab/server.py).
   relative-pose fallback chain; unresolvable messages are re-queued.
 - Global BA runs time-sliced, one Gauss-Newton step a comm cycle, polled
   for readiness by a CUDA event recorded after each step.
+- With inertial agents, every adopted global BA is followed by one joint
+  visual-inertial solve over each inertial agent's chain
+  (run_full_inertial_ba), on the preintegration windows the clients
+  uplink.
+- run_global_ba shards the observation list over a list of devices when
+  more than one CUDA device is visible or the caller asks
+  (opt/global_ba.global_bundle_adjust_sharded).
 
 Random stream: the verification cascade draws from one torch.Generator
 seeded 99; the JAX package splits PRNGKey(99) for each cascade. The draws
 differ, the outcomes agree.
-
-Not ported yet: the inertial solves (run_full_inertial_ba and the windowed
-refinement behind it) and the sharded global BA; where the reference would
-run them, the port raises NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -43,14 +46,10 @@ from multi_orbslam3_tpu_torch.geometry import camera as cam
 from multi_orbslam3_tpu_torch.geometry import sim3
 from multi_orbslam3_tpu_torch.imu import preintegration as pre
 from multi_orbslam3_tpu_torch.map import mapstate as ms
-from multi_orbslam3_tpu_torch.opt import global_ba, local_ba
+from multi_orbslam3_tpu_torch.opt import global_ba, inertial_ba, inertial_init, local_ba
 from multi_orbslam3_tpu_torch.pipeline import culling, local_mapping, loop_closing
 from multi_orbslam3_tpu_torch.pipeline.tracking import level_inv_sigma2
-
-INERTIAL_SLICE = ("the server's inertial solves are the next slice of the "
-                  "PyTorch port (ROADMAP queue A, item 16b)")
-SHARDED_GBA = ("the sharded global BA is not ported yet (ROADMAP queue A, "
-               "item 17); distributed=None runs on one device")
+from multi_orbslam3_tpu_torch.utils.padding import pow2_len
 
 
 def _arena_chi2(poses, points, obs, K) -> torch.Tensor:
@@ -1116,20 +1115,31 @@ class CollabServer:
 
     def run_global_ba(self, iters: int = 6, cg_iters: int = 30,
                       distributed: Optional[bool] = None,
-                      force_shard: bool = False) -> None:
+                      force_shard: bool = False, devices=None) -> None:
         """Full-arena visual BA, synchronous (tests, benchmarks); the comm
-        path uses start_global_ba_async. distributed=None runs on one
-        device; the sharded solve is ROADMAP item 17."""
-        if distributed or force_shard:
-            raise NotImplementedError(SHARDED_GBA)
+        path uses start_global_ba_async. With more than one visible CUDA
+        device (distributed=None), distributed=True or force_shard, the
+        observation list is sharded by landmark owner over `devices`
+        (None: every visible CUDA device, or the server's CPU) and the
+        camera-side sums are reduced across them; force_shard takes that
+        path on one device."""
         t0 = time.perf_counter()
         m = self.m
         obs, K_obs, fixed, inert, pfix = self._assemble_gba()
         obs, K_obs = self._valid_rows(obs, K_obs)
-        res = global_ba.global_bundle_adjust(
-            m.kf_pose, self._up(fixed), m.mp_pos, m.mp_valid, obs, K_obs,
-            iters=iters, cg_iters=cg_iters,
-            point_fixed=None if pfix is None else self._up(pfix))
+        if distributed is None:
+            distributed = self.device.type == "cuda" and torch.cuda.device_count() > 1
+        if devices is None and self.device.type != "cuda":
+            devices = [self.device]
+        kw = dict(iters=iters, cg_iters=cg_iters,
+                  point_fixed=None if pfix is None else self._up(pfix))
+        if distributed or force_shard:
+            res = global_ba.global_bundle_adjust_sharded(
+                m.kf_pose, self._up(fixed), m.mp_pos, m.mp_valid, obs, K_obs,
+                devices=devices, force_shard=force_shard, **kw)
+        else:
+            res = global_ba.global_bundle_adjust(
+                m.kf_pose, self._up(fixed), m.mp_pos, m.mp_valid, obs, K_obs, **kw)
         c = fetch(dict(c_in=res.chi2_in, c_out=res.chi2))
         c_in, c_out = float(c["c_in"]), float(c["c_out"])
         # the LM-controlled solve never raises its own metric: anything
@@ -1142,7 +1152,10 @@ class CollabServer:
         self.stats["gba_wall_s"] = round(
             self.stats.get("gba_wall_s", 0.0) + (time.perf_counter() - t0), 3)
         if inert:
-            raise NotImplementedError(INERTIAL_SLICE)
+            # the inertial agents' poses, held in the visual pass, are
+            # refined with their preintegration factors holding the gauge
+            self.stats["vi_solves"] = self.stats.get("vi_solves", 0) + \
+                self.run_full_inertial_ba()
         self._cull_outlier_kfs()
         shared = self._shared_map_ids()
         for mid in shared:
@@ -1283,7 +1296,8 @@ class CollabServer:
         self.stats["gba_wall_s"] = round(
             self.stats.get("gba_wall_s", 0.0) + (time.perf_counter() - st["t0"]), 3)
         if st["inert"]:
-            raise NotImplementedError(INERTIAL_SLICE)
+            self.stats["vi_solves"] = self.stats.get("vi_solves", 0) + \
+                self.run_full_inertial_ba()
         self._cull_outlier_kfs()
         # improved geometry exposes more cross-agent duplicates
         shared = self._shared_map_ids()
@@ -1298,19 +1312,287 @@ class CollabServer:
     # ==================================================================
     # culling (server side only, as in the reference)
     # ==================================================================
+    # ==================================================================
+    # server-side inertial solves over the uplinked preintegration rows
+    # ==================================================================
     def _merge_preint_forward(self, slot: int, agent: int,
                               valid_mask: Optional[np.ndarray] = None) -> None:
-        """A culled keyframe's uplinked preintegration window would fold
-        into its successor's; rows without a window (every monocular
-        agent's) need nothing."""
-        if float(self.kf_imu[slot, pre.FLAT_DT]) <= 0.0:
+        """Before an inertial agent's keyframe is erased, fold its uplinked
+        preintegration window into the next own keyframe's window, so the
+        agent's inertial chain stays unbroken (the reference's
+        MergePrevious on erasure). With no row-bearing successor ingested
+        yet, the window waits as an orphan for _splice_orphan_preints."""
+        row = self.kf_imu[slot].copy()
+        if float(row[pre.FLAT_DT]) <= 0.0:      # no window uplinked
             return
-        raise NotImplementedError(INERTIAL_SLICE)
+        snap = fetch(dict(agent=self.m.kf_agent, **(
+            dict(valid=self.m.kf_valid) if valid_mask is None else {})))
+        valid = snap["valid"] if valid_mask is None else valid_mask
+        cand = np.nonzero(valid & (snap["agent"] == agent))[0]
+        cand = cand[cand > slot]
+        self.kf_imu[slot] = 0.0
+        # the first successor that carries a window takes it (rows ship
+        # once, inside keyframe payloads)
+        for c in cand:
+            if float(self.kf_imu[c, pre.FLAT_DT]) > 0.0:
+                merged = pre.merge_preintegrated(
+                    pre.flat_to_preint(row[:pre.FLAT_DIM]),
+                    pre.flat_to_preint(self.kf_imu[c, :pre.FLAT_DIM]))
+                self.kf_imu[c, :pre.FLAT_DIM] = pre.preint_to_flat(merged)
+                return
+        self._orphan_preint.setdefault(agent, []).append((slot, row))
 
     def _splice_orphan_preints(self, agent: int, slot_i: int) -> None:
-        """Orphan windows exist only once _merge_preint_forward stashes them."""
-        if self._orphan_preint.get(agent):
-            raise NotImplementedError(INERTIAL_SLICE)
+        """Fold the stashed orphan windows of keyframes erased before
+        slot_i into the freshly ingested row-bearing keyframe slot_i."""
+        orphans = self._orphan_preint.get(agent)
+        if not orphans:
+            return
+        take = sorted([o for o in orphans if o[0] < slot_i], key=lambda o: o[0])
+        if not take:
+            return
+        self._orphan_preint[agent] = [o for o in orphans if o[0] >= slot_i]
+        acc = pre.flat_to_preint(take[0][1][:pre.FLAT_DIM])
+        for _, row in take[1:]:
+            acc = pre.merge_preintegrated(acc, pre.flat_to_preint(row[:pre.FLAT_DIM]))
+        merged = pre.merge_preintegrated(
+            acc, pre.flat_to_preint(self.kf_imu[slot_i, :pre.FLAT_DIM]))
+        self.kf_imu[slot_i, :pre.FLAT_DIM] = pre.preint_to_flat(merged)
+
+    def _kf_owners(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Host copies of the arena's keyframe validity and owners."""
+        snap = fetch(dict(valid=self.m.kf_valid, agent=self.m.kf_agent))
+        return snap["valid"], snap["agent"]
+
+    def run_inertial_refinement(self, window: int = 8, anchor: int = 2,
+                                iters: int = 4) -> int:
+        """Sweep fixed-size visual-inertial windows over each inertial
+        agent's keyframe chain with the uplinked preintegration windows,
+        velocities and biases; each window's anchor prefix is pose-fixed,
+        so windows weld onto already-refined state. Returns the number of
+        windows solved."""
+        valid, agents_arr = self._kf_owners()
+        n_windows = 0
+        for a, book in self.agents.items():
+            if not book.inertial:
+                continue
+            own = np.nonzero(valid & (agents_arr == a))[0]
+            has_pre = self.kf_imu[own, pre.FLAT_DT] > 0.0
+            if int(has_pre.sum()) < 2 or len(own) < anchor + 2:
+                continue
+            T_bc = book.T_bc if book.T_bc is not None else np.eye(4, dtype=np.float32)
+            g_w = np.array([0.0, 0.0, -float(self.cfg.imu.gravity)], np.float32)
+            Kw = anchor + window
+            start = 0
+            while start + anchor + 1 < len(own):
+                self._vi_window(own[start:start + Kw], Kw, T_bc, g_w, iters,
+                                n_fixed=anchor if start > 0 else 1)
+                n_windows += 1
+                start += window
+        return n_windows
+
+    def _estimate_agent_gravity(self, own: np.ndarray,
+                                T_bc: np.ndarray) -> Optional[np.ndarray]:
+        """The gravity direction of one agent's arena chain (poses fixed,
+        scale pinned): the server's world is the client's init-time gauge,
+        whose gravity is only as vertical as that estimate, and a joint
+        solve against an assumed -z would tilt the chain by the init
+        error. Returns g_w (3,), or None for a chain with fewer than 6
+        consecutive valid windows."""
+        snap = fetch(dict(ts=self.m.kf_timestamp, pose=self.m.kf_pose))
+        rows = self.kf_imu[own]
+        ts = snap["ts"][own]
+        gap = np.diff(ts, prepend=ts[0])
+        ok = np.zeros(len(own), bool)
+        ok[1:] = (rows[1:, pre.FLAT_DT] > 0.0) & (
+            np.abs(rows[1:, pre.FLAT_DT] - gap[1:]) < 0.25 * np.maximum(gap[1:], 1e-3) + 0.01)
+        # the longest run of consecutive valid windows
+        best, start = (0, 0), 0
+        for i in range(1, len(own) + 1):
+            if i == len(own) or not ok[i]:
+                if i - start > best[1] - best[0]:
+                    best = (start, i)
+                start = i
+        a, b = best
+        if b - a < 6:
+            return None
+        sl = own[a:b]
+        T_cw = snap["pose"][sl].astype(np.float64)
+        T_wb = np.linalg.inv(np.asarray(T_bc, np.float64)[None] @ T_cw)
+        G = float(self.cfg.imu.gravity)
+        res = inertial_init.inertial_init(
+            self._up(T_wb[:, :3, :3].astype(np.float32)),
+            self._up(T_wb[:, :3, 3].astype(np.float32)),
+            pre.flat_to_preint(self._up(self.kf_imu[sl, :pre.FLAT_DIM])),
+            G=G, fix_scale=True)
+        R_wg = self._host(res.R_wg).astype(np.float64)
+        if not np.all(np.isfinite(R_wg)):
+            return None
+        return (R_wg @ np.array([0.0, 0.0, -G])).astype(np.float32)
+
+    def run_full_inertial_ba(self, iters: int = 8, max_joint: int = 256) -> int:
+        """One joint visual-inertial solve over each inertial agent's whole
+        keyframe chain (the reference's FullInertialBA after a global BA):
+        poses, velocities, biases and landmarks, with preintegration and
+        reprojection factors. A windowed pass cannot redistribute error
+        along a whole arc. Each chain is padded to a power-of-two bucket;
+        chains longer than max_joint take the windowed sweep. Returns the
+        solves run."""
+        valid, agents_arr = self._kf_owners()
+        n_solved = 0
+        shared = self._shared_map_ids()
+        for a, book in self.agents.items():
+            if not book.inertial:
+                continue
+            own = np.nonzero(valid & (agents_arr == a))[0]
+            has_pre = self.kf_imu[own, pre.FLAT_DT] > 0.0
+            if int(has_pre.sum()) < 2 or len(own) < 4:
+                continue
+            if len(own) > max_joint:
+                n_solved += self.run_inertial_refinement()
+                continue
+            T_bc = book.T_bc if book.T_bc is not None else np.eye(4, dtype=np.float32)
+            g_est = self._estimate_agent_gravity(own, T_bc)
+            g_w = g_est if g_est is not None else np.array(
+                [0.0, 0.0, -float(self.cfg.imu.gravity)], np.float32)
+            Kw = pow2_len(len(own), lo=16)
+            # landmarks are free; in a merged map, those other agents also
+            # observe stay pinned (this per-agent solve cannot see those
+            # residuals; the visual GBA owns them)
+            pf_global = None
+            if book.map_id in shared:
+                snap = fetch(dict(kf_mp=self.m.kf_mp, fv=self.m.kf_feat_valid))
+                others = valid & (agents_arr != a)
+                rows = snap["kf_mp"][others]
+                rows_ok = snap["fv"][others] & (rows >= 0)
+                pf_global = np.zeros(self.m.max_mp, bool)
+                pf_global[rows[rows_ok]] = True
+            # the landmark set is capped at 4,096 as in the JAX package; a
+            # chain that sees more loses its highest slots
+            # (stats["vi_pts_truncated"] counts each such solve)
+            self._vi_window(own, Kw, T_bc, g_w, iters, n_fixed=1,
+                            n_pts=min(4096, self.m.max_mp), fix_points=False,
+                            point_fixed=pf_global)
+            n_solved += 1
+        return n_solved
+
+    def _vi_window_inputs(self, sl: np.ndarray, Kw: int, T_bc: np.ndarray,
+                          g_w: np.ndarray, n_fixed: int, n_pts: Optional[int] = None,
+                          point_fixed: Optional[np.ndarray] = None) -> Optional[dict]:
+        """The fixed-shape inputs of one visual-inertial window over arena
+        slots `sl`, padded to Kw by repeating the last slot (pads are
+        pose-fixed and carry no observations and no inertial pair); None
+        when no pair in it is usable. The uploads do not wait on the
+        device; the keyframe timestamps are read once."""
+        n_real = len(sl)
+        sl_pad = np.concatenate([sl, np.full(Kw - n_real, sl[-1], sl.dtype)])
+        m = self.m
+        dev = self.device
+        rows = self.kf_imu[sl_pad]
+        # pair i-1 -> i is usable only when both are real and a window
+        # spanning the keyframes' timestamp gap was uplinked for i (a
+        # mismatch means a dropped uplink, an unmerged cull or an init-time
+        # window: a factor over the wrong span corrupts poses)
+        ts_w = self._host(m.kf_timestamp)[sl_pad]
+        gap = np.diff(ts_w, prepend=ts_w[0])
+        pair_valid = np.zeros(Kw, bool)
+        pair_valid[1:n_real] = (
+            (rows[1:n_real, pre.FLAT_DT] > 0.0)
+            & (np.abs(rows[1:n_real, pre.FLAT_DT] - gap[1:n_real])
+               < 0.25 * np.maximum(gap[1:n_real], 1e-3) + 0.01))
+        if not pair_valid.any():
+            return None
+        fixed = np.arange(Kw) >= n_real         # pads
+        fixed[:n_fixed] = True                  # anchor prefix
+        up = self._up(rows)
+        sj = self._up(sl_pad.astype(np.int64))
+        obs_mp = m.kf_mp[sj]
+        if n_pts is None:
+            n_pts = self.cfg.local_mapping.local_ba_points
+        uniq = local_mapping.fixed_size_unique(obs_mp, n_pts, ms.NO_MP)
+        pt_ok = uniq >= 0
+        # distinct landmarks the window observes, for the truncation count
+        srt = torch.sort(obs_mp.reshape(-1)).values
+        n_seen = torch.sum((srt[1:] != srt[:-1]) & (srt[1:] >= 0)) + (srt[0] >= 0).long()
+        lut = torch.full((m.max_mp + 1,), -1, dtype=torch.int64, device=dev)
+        lut = lut.index_put((torch.where(pt_ok, uniq, m.max_mp).long(),),
+                            torch.where(pt_ok, torch.arange(n_pts, device=dev), -1))
+        flat_mp = obs_mp.reshape(-1)
+        local_pt = lut[torch.where(flat_mp >= 0, flat_mp, m.max_mp).long()]
+        N = m.kf_mp.shape[1]
+        kf_idx = torch.arange(Kw, device=dev).repeat_interleave(N)
+        obs = local_ba.BAObservations(
+            kf=kf_idx, pt=torch.where(local_pt >= 0, local_pt, 0),
+            uv=m.kf_uv[sj].reshape(-1, 2),
+            inv_sigma2=level_inv_sigma2(m.kf_level[sj].reshape(-1),
+                                        self.cfg.orb.scale_factor),
+            valid=(flat_mp >= 0) & (local_pt >= 0) & m.kf_feat_valid[sj].reshape(-1)
+            & (kf_idx < n_real))
+        pt_safe = torch.where(pt_ok, uniq, 0).long()
+        pf_local = None
+        if point_fixed is not None:
+            pf_local = self._up(point_fixed)[pt_safe] | ~pt_ok
+        host = self._up(np.concatenate([
+            fixed, pair_valid]).astype(np.float32))
+        solve = dict(
+            poses=m.kf_pose[sj], velocities=up[:, pre.FLAT_DIM:].contiguous(),
+            bg=up[:, pre.FLAT_BG:pre.FLAT_BG + 3].contiguous(),
+            ba=up[:, pre.FLAT_BA:pre.FLAT_BA + 3].contiguous(), fixed=host[:Kw] > 0,
+            points=m.mp_pos[pt_safe], obs=obs,
+            preints=pre.flat_to_preint(up[:, :pre.FLAT_DIM]), pair_valid=host[Kw:] > 0,
+            K=ms.kf_intrinsics(m, sj[0], self.K), g_w=self._up(np.asarray(g_w, np.float32)),
+            T_bc=self._up(np.asarray(T_bc, np.float32).reshape(4, 4)),
+            point_fixed=pf_local)
+        return {"solve": solve, "sl": sl, "sj": sj, "n_real": n_real, "uniq": uniq,
+                "pt_ok": pt_ok, "n_seen": n_seen}
+
+    def _vi_window(self, sl: np.ndarray, Kw: int, T_bc: np.ndarray, g_w: np.ndarray,
+                   iters: int, n_fixed: int, n_pts: Optional[int] = None,
+                   fix_points: bool = True,
+                   point_fixed: Optional[np.ndarray] = None) -> None:
+        """One visual-inertial window over arena slots `sl` (see
+        _vi_window_inputs). The solve itself reads nothing back; after it,
+        one read takes the finiteness and visual-consistency gates, the
+        truncation count and the refined velocities, which the host rows
+        keep."""
+        inp = self._vi_window_inputs(sl, Kw, T_bc, g_w, n_fixed, n_pts, point_fixed)
+        if inp is None:
+            return
+        sv, sj, n_real = inp["solve"], inp["sj"], inp["n_real"]
+        uniq, pt_ok = inp["uniq"], inp["pt_ok"]
+        res = inertial_ba.inertial_bundle_adjust(**sv, iters=iters, fix_points=fix_points)
+        # visual-consistency gate: the IMU factors must not win by dragging
+        # the window off the image evidence; the window is reverted if the
+        # visual inlier chi2 got worse
+        obs = sv["obs"]
+        r0, _, _, behind0 = local_ba._obs_terms(sv["poses"], sv["points"], obs, sv["K"])
+        c20 = local_ba._chi2(r0, obs.inv_sigma2)
+        in0 = obs.valid & ~behind0 & (c20 <= 5.991)
+        chi0 = torch.sum(torch.where(in0, c20, 0.0)) / torch.clamp(
+            torch.sum(in0.to(torch.int32)), min=1)
+        snap = fetch(dict(finite=torch.isfinite(res.poses).all(), chi0=chi0,
+                          chi2=res.chi2, n_seen=inp["n_seen"], n_kept=pt_ok.sum(),
+                          vel=res.velocities[:n_real]))
+        if int(snap["n_seen"]) > int(snap["n_kept"]):
+            self.stats["vi_pts_truncated"] = self.stats.get("vi_pts_truncated", 0) + 1
+        if not bool(snap["finite"]):
+            return
+        chi0 = float(snap["chi0"])
+        if float(snap["chi2"]) > max(chi0 * 1.2, chi0 + 0.05):
+            return
+        # write back the real rows only: pads repeat sl[-1]
+        m = self.m
+        real = torch.arange(Kw, device=self.device) < n_real
+        upd = {"kf_pose": ms.scatter_rows(m.kf_pose, sj, real, res.poses)}
+        if not fix_points:
+            # the joint solve moved landmarks too. Rows without a landmark
+            # go to the sacrificial row: the JAX package sends them to slot
+            # 0, a duplicate index whose winner a GPU scatter leaves open
+            upd["mp_pos"] = ms.scatter_rows(m.mp_pos, uniq, pt_ok, res.points)
+        self.m = m._replace(**upd)
+        # refined velocities chain into the next window's anchor (the
+        # integration-time biases stay: they are the linearisation point)
+        self.kf_imu[sl, pre.FLAT_DIM:] = snap["vel"]
 
     def _notify_kfs_erased(self, culled: np.ndarray, before: np.ndarray,
                            agents_arr: np.ndarray) -> None:

@@ -218,8 +218,10 @@ def preint_to_flat(p: Preintegrated) -> np.ndarray:
 
 
 def flat_to_preint(row, device=None) -> Preintegrated:
-    """Inverse of preint_to_flat (accepts a numpy array or a tensor)."""
+    """Inverse of preint_to_flat (accepts a numpy array or a tensor). Rows
+    (..., FLAT_DIM) give a Preintegrated with those leading axes."""
     r = torch.as_tensor(row, dtype=torch.float32, device=device)
     sizes = [int(np.prod(s)) for s in _FLAT_SHAPES]
-    return Preintegrated(*(part.reshape(s) for part, s in
-                           zip(torch.split(r, sizes), _FLAT_SHAPES)))
+    lead = tuple(r.shape[:-1])
+    return Preintegrated(*(part.reshape(lead + s) for part, s in
+                           zip(torch.split(r, sizes, dim=-1), _FLAT_SHAPES)))

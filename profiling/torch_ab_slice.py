@@ -13,7 +13,11 @@ own gates:
   warm-up pass and then the timed pass of bench_mono;
 - ``stereo``: ``phase_stereo`` (bench_stereo, one timed pass);
 - ``mono_inertial``: ``phase_mono_inertial`` (bench_mono_inertial, one
-  timed pass).
+  timed pass);
+- ``collab``: ``phase_collab`` (bench_collab's two agents and the server)
+  twice under ``reproducible`` with the server's ``deterministic`` flag;
+  the second run's numbers (server cycle percentiles, the global BA's
+  Gauss-Newton step, fps, each agent's ATE) are printed.
 
 Prints one JSON line a run (fps, frame-time percentiles, frames OK, ATE,
 peak memory, kernel launches, and the mode's own stage times) and a last
@@ -74,7 +78,17 @@ keep = ("fps", "wall_s", "frame_ms_p50", "frame_ms_p90", "frame_ms_p99",
         "kf_evaluated", "stages", "launches")
 """
 
-MODES = {"mono": RUN_MONO, "stereo": RUN_STEREO, "mono_inertial": RUN_MONO_INERTIAL}
+RUN_COLLAB = """
+with cs.reproducible():
+    cs.phase_collab(deterministic=True)
+    res, _ = cs.phase_collab(deterministic=True)
+keep = ("total_fps_wall", "wall_s", "comm_cycle_ms_p50", "comm_cycle_ms_p90",
+        "comm_cycle_ms_p99", "gn_step_ms", "gn_step_ms_all", "merges", "gba_runs",
+        "obs_valid", "agent0", "agent1", "launches")
+"""
+
+MODES = {"mono": RUN_MONO, "stereo": RUN_STEREO, "mono_inertial": RUN_MONO_INERTIAL,
+         "collab": RUN_COLLAB}
 
 
 def main(argv) -> int:

@@ -209,3 +209,45 @@ def test_weak_tracking_defers_the_downlink():
     tc._ingest_corrections()
     assert len(tc._deferred_down) == len(jc._deferred_down) == 1
     assert_clients_match(jc, tc)
+
+
+def test_a_post_merge_correction_batch_leaves_the_same_map():
+    """The case the free-running trace points to (ROADMAP queue C): after a
+    merge (gauge, corrections, foreign content), a later GBA's correction
+    batch locks the older keyframes, leaves the newest free, moves landmarks
+    and refreshes the foreign copies; the free tail and the live pose are
+    carried by _propagate_correction. Both clients must agree."""
+    from multi_orbslam3_tpu_torch.collab import protocol as tproto
+    jc, tc = clients(3)
+    for c in (jc, tc):
+        c._build_delta()
+    n = jcfg.small_synthetic().orb.n_features
+    d = downlink(4, n, True)
+    jc.transport.send_down(1, to_delta(jproto, d).to_bytes())
+    tc.transport.send_down(1, to_delta(tproto, d).to_bytes())
+    jc._ingest_corrections()
+    tc._ingest_corrections()
+    for c in (jc, tc):
+        c._build_delta()
+    rng = np.random.RandomState(5)
+    ids = np.asarray([0, 1, 2, 3, 5], np.int32)
+    T = np.tile(np.eye(4, dtype=np.float32), (len(ids), 1, 1))
+    T[:, :3, 3] = np.asarray([[0.2 * k + 0.03, 0.01 * k - 0.02, 0.01] for k in ids])
+    T[:, :3, :3] = np.asarray([[[1, 0, 0], [0, np.cos(0.02), -np.sin(0.02)],
+                                [0, np.sin(0.02), np.cos(0.02)]]] * len(ids))
+    d2 = dict(agent=1, ack_seq=2,
+              kf_updates=dict(agent=1, local_id=ids, T_abs=T, locked=np.ones(len(ids), bool)),
+              mp_updates=dict(agent=1, local_id=np.arange(30, 45, dtype=np.int32),
+                              pos_abs=(rng.randn(15, 3) + [0, 0, 5]).astype(np.float32),
+                              locked=np.ones(15, bool)),
+              foreign_mp_updates=dict(server_id=np.arange(500, 506, dtype=np.int32),
+                                      pos_abs=(rng.randn(6, 3) + [0, 0, 4]).astype(np.float32)))
+    jc.transport.send_down(1, to_delta(jproto, d2).to_bytes())
+    tc.transport.send_down(1, to_delta(tproto, d2).to_bytes())
+    jc._ingest_corrections()
+    tc._ingest_corrections()
+    assert jc.stats["corrections_applied"] == 2 + len(ids)
+    assert_clients_match(jc, tc, atol=1e-5)
+    # the free tail moved with its nearest corrected keyframe
+    moved = np.abs(np.asarray(jc.slam.m.kf_pose)[6:10] - jc._old_poses[6:10]).max()
+    assert moved > 1e-4

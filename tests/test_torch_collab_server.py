@@ -314,9 +314,29 @@ def test_checkpoints_travel_jax_to_port_to_jax(ingested, tmp_path):
         assert ha == hb
 
 
-def test_global_ba_entry_points():
-    js, ts = servers()
-    with pytest.raises(NotImplementedError, match="item 17"):
-        ts.run_global_ba(distributed=True)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        ts.run_global_ba(force_shard=True)
+def test_global_ba_entry_points(tmp_path):
+    """run_global_ba(distributed=True) shards the solve over the devices
+    (JAX: its 8 virtual CPU devices; the port: 8 shards of the CPU), and
+    force_shard=True takes the sharded path on the server's one device;
+    each leaves the same arena as the JAX server's call."""
+    from multi_orbslam3_tpu.eval.gba_scaling import make_server_arena
+    for kw_j, kw_t in (({"distributed": True}, {"distributed": True, "devices": ["cpu"] * 8}),
+                       ({"force_shard": True}, {"force_shard": True})):
+        js = make_server_arena(n_kf=24, n_mp=1024, n_feat=128, n_agents=2, seed=1)
+        path = str(tmp_path / "arena.npz")
+        js.save_checkpoint(path)
+        ct = tcfg.synthetic_mono().replace(
+            orb=tcfg.ORBConfig(n_features=128),
+            map=tcfg.MapConfig(max_keyframes=24, max_mappoints=1024, max_obs_per_kf=128))
+        ts = tserver.CollabServer(ct, TTransport(), n_agents=2, arena_kf=24, arena_mp=1024,
+                                  device="cpu")
+        ts.load_checkpoint(path)
+        js.run_global_ba(iters=2, cg_iters=10, **kw_j)
+        ts.run_global_ba(iters=2, cg_iters=10, **kw_t)
+        assert js.stats["gba_runs"] == ts.stats["gba_runs"] == 1
+        for f in ("kf_pose", "mp_pos"):
+            want = np.asarray(getattr(js.m, f), np.float64)
+            got = getattr(ts.m, f).numpy().astype(np.float64)
+            assert np.abs(got - want).max() < 1e-3 * np.abs(want).max(), f
+        np.testing.assert_array_equal(ts.m.kf_pose_locked.numpy(),
+                                      np.asarray(js.m.kf_pose_locked))

@@ -502,3 +502,51 @@ def test_collab_entry_points_run_on_the_card(dev):
     assert CollabClient(c, 0, tr).slam.m.kf_pose.device.type == "cuda"
     server = CollabServer(c, tr, 2)
     assert server.m.kf_pose.device.type == "cuda" and server.db.word.device.type == "cuda"
+
+
+def test_sharded_global_bundle_adjust_on_the_card_matches_the_cpu(dev):
+    """Four shards of the card against the unsharded solve on the CPU."""
+    from multi_orbslam3_tpu_torch.opt import global_ba
+    r4 = global_ba.global_bundle_adjust_sharded(*_gba_problem(dev), iters=2, cg_iters=20,
+                                                devices=[dev] * 4)
+    ru = global_ba.global_bundle_adjust(*_gba_problem(torch.device("cpu")), iters=2,
+                                        cg_iters=20)
+    for a, b in zip((r4.poses, r4.points, r4.chi2), (ru.poses, ru.points, ru.chi2)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-3, rtol=1e-3)
+
+
+def test_inertial_collab_entry_points_run_on_the_card(dev):
+    """CollabClient(inertial=True) and the sharded server entry on the card."""
+    from multi_orbslam3_tpu_torch.collab import CollabClient, InProcessTransport
+    from multi_orbslam3_tpu_torch.dryrun import dryrun_multichip
+    cl = CollabClient(cfg.small_synthetic(), 0, InProcessTransport(), inertial=True)
+    assert type(cl.slam).__name__ == "MonoInertialSlam"
+    assert cl.slam.m.kf_pose.device.type == "cuda"
+    out = dryrun_multichip([dev] * 4)
+    assert out["chi2_after"] <= 1.01 * out["chi2_before"]
+
+
+def test_sharded_global_bundle_adjust_across_cards(dev, monkeypatch):
+    """One shard on each visible card, the partials summed by
+    torch.cuda.comm.reduce_add, against as many shards on one card; then
+    the dry run across the cards."""
+    import torch.cuda.comm
+    from multi_orbslam3_tpu_torch.dryrun import dryrun_multichip
+    from multi_orbslam3_tpu_torch.opt import global_ba
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA GPUs")
+    cards = [torch.device("cuda", i) for i in range(n)]
+    calls = []
+    reduce_add = torch.cuda.comm.reduce_add
+    monkeypatch.setattr(torch.cuda.comm, "reduce_add",
+                        lambda *a, **k: calls.append(1) or reduce_add(*a, **k))
+    rn = global_ba.global_bundle_adjust_sharded(*_gba_problem(cards[0]), iters=2,
+                                                cg_iters=20, devices=cards)
+    assert calls
+    r1 = global_ba.global_bundle_adjust_sharded(*_gba_problem(cards[0]), iters=2,
+                                                cg_iters=20, devices=[cards[0]] * n)
+    for a, b in zip((rn.poses, rn.points, rn.chi2), (r1.poses, r1.points, r1.chi2)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=1e-3, rtol=1e-3)
+    out = dryrun_multichip(cards)
+    assert out["chi2_after"] <= 1.01 * out["chi2_before"]

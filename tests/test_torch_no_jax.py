@@ -245,11 +245,9 @@ for name, fn in calls.items():
         assert "no CUDA device" in str(e) and name in str(e), e
         print(name, "raised")
     fn("cpu")
-try:
-    CollabClient(c, 0, InProcessTransport(), inertial=True, device="cpu")
-except NotImplementedError as e:
-    assert "16b" in str(e)
-    print("inertial client raised")
+cl = CollabClient(c, 0, InProcessTransport(), inertial=True, device="cpu")
+assert type(cl.slam).__name__ == "MonoInertialSlam" and cl.slam.device.type == "cpu"
+print("inertial client ran")
 """
 
 
@@ -263,4 +261,36 @@ def test_helpers_and_collab_entry_points_default_to_the_card():
     assert lines[:-1] == [f"{n} raised" for n in (
         "default_vocabulary", "load_vocabulary", "train_vocabulary",
         "KeyframeDatabase.empty", "load_map", "CollabClient", "CollabServer")]
-    assert lines[-1] == "inertial client raised"
+    assert lines[-1] == "inertial client ran"
+
+
+def test_the_ports_padding_module_is_a_byte_identical_copy():
+    """utils/padding.py (pow2_len, pad_pow2) is the JAX package's, byte for
+    byte, and computes the same buckets."""
+    a = (REPO / "multi_orbslam3_tpu" / "utils" / "padding.py").read_bytes()
+    assert a == (PORT / "utils" / "padding.py").read_bytes()
+    from multi_orbslam3_tpu.utils import padding as jpad
+    from multi_orbslam3_tpu_torch.utils import padding as tpad
+    for n in (0, 1, 7, 8, 9, 100, 256, 257):
+        assert tpad.pow2_len(n, lo=16) == jpad.pow2_len(n, lo=16)
+    ids = np.arange(5)
+    for x, y in zip(tpad.pad_pow2(ids, ids * 2.0), jpad.pad_pow2(ids, ids * 2.0)):
+        np.testing.assert_array_equal(x, y)
+
+
+_NEW_MODULES_WITH_JAX_BLOCKED = """
+import sys
+sys.modules["jax"] = None
+sys.modules["multi_orbslam3_tpu"] = None
+from multi_orbslam3_tpu_torch.eval import gba_scaling
+from multi_orbslam3_tpu_torch import dryrun
+from multi_orbslam3_tpu_torch.utils import padding
+s = gba_scaling.make_server_arena(n_kf=8, n_mp=256, n_feat=32, device="cpu")
+print(int(s.m.n_kf), padding.pow2_len(20))
+"""
+
+
+def test_gba_scaling_and_the_dryrun_import_nothing_of_jax():
+    r = _python("-c", _NEW_MODULES_WITH_JAX_BLOCKED)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["8", "32"]
