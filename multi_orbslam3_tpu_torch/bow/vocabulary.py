@@ -126,6 +126,14 @@ def train_vocabulary(descriptors: np.ndarray, branching: int = 10,
     return dataclasses.replace(voc, idf=torch.from_numpy(idf).to(device))
 
 
+def save_vocabulary(voc: Vocabulary, path: str) -> None:
+    """Persist a trained vocabulary in the JAX package's .npz layout (the
+    level tables as uint32 words), which both packages load."""
+    arrays = {f"level{i}": t.cpu().numpy().view(np.uint32) for i, t in enumerate(voc.levels)}
+    np.savez_compressed(path, idf=voc.idf.cpu().numpy(), branching=np.int32(voc.branching),
+                        depth=np.int32(voc.depth), **arrays)
+
+
 def load_vocabulary(path: str, device=None) -> Vocabulary:
     """device None is the CUDA device (``devices.resolve``)."""
     device = devices.resolve(device, "load_vocabulary")

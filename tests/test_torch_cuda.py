@@ -550,3 +550,16 @@ def test_sharded_global_bundle_adjust_across_cards(dev, monkeypatch):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=1e-3, rtol=1e-3)
     out = dryrun_multichip(cards)
     assert out["chi2_after"] <= 1.01 * out["chi2_before"]
+
+
+def test_bench_kernels_dispatches_the_kernels_and_they_equal_the_plain_versions(dev):
+    """eval/benchmarks.py::bench_kernels at the JAX package's shapes (K1 on
+    one 480x752 level of noise, K2's matrix at 16,384 x 1,024): the card
+    path launches both kernels, and both equal their plain versions."""
+    from multi_orbslam3_tpu_torch.eval import benchmarks as B
+    kernels.reset_launch_counts()
+    out = B.bench_kernels(device=dev)
+    counts = kernels.launch_counts()
+    assert out["dispatched"] == "cuda" and out["fast_equal"] and out["hamming_equal"], out
+    assert counts["fast_score_nms_levels"] > 0 and counts["hamming_matrix"] > 0, counts
+    assert out["codec"]["native_available"]

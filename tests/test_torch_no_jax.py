@@ -26,8 +26,14 @@ import multi_orbslam3_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-print(len(names))
+print(" ".join(names))
 """
+
+# the harness: entry scripts, bench, dataset ingest, benchmarks, viewer
+HARNESS_MODULES = (
+    "apps.run_slam", "apps.run_mono", "apps.run_collab_sim", "apps.run_server",
+    "apps.run_client", "apps.train_vocabulary", "bench", "dataio.euroc",
+    "dataio.mini_asl", "dataio.rectify", "eval.benchmarks", "eval.viewer", "utils.timing")
 
 
 def _python(*args: str) -> subprocess.CompletedProcess:
@@ -40,7 +46,9 @@ def test_every_port_module_imports_with_jax_blocked():
     """With both `jax` and `multi_orbslam3_tpu` blocked."""
     r = _python("-c", _IMPORT_EVERY_MODULE)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 25
+    names = set(r.stdout.split())
+    assert len(names) >= 60
+    assert {f"multi_orbslam3_tpu_torch.{n}" for n in HARNESS_MODULES} <= names
 
 
 def test_no_source_of_the_port_imports_the_jax_package():
@@ -48,7 +56,8 @@ def test_no_source_of_the_port_imports_the_jax_package():
     multi_orbslam3_tpu (without _torch)."""
     pat = re.compile(r"^\s*(from|import)\s+(jax|multi_orbslam3_tpu)(\.|\s|$)")
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 25
+    assert len(files) > 60
+    assert {PORT / (n.replace(".", "/") + ".py") for n in HARNESS_MODULES} <= set(files)
     hits = [f"{f.relative_to(REPO)}:{i}: {line.strip()}"
             for f in files for i, line in enumerate(f.read_text().splitlines(), 1)
             if pat.match(line)]
@@ -250,11 +259,70 @@ assert type(cl.slam).__name__ == "MonoInertialSlam" and cl.slam.device.type == "
 print("inertial client ran")
 """
 
+_HARNESS_WITHOUT_A_DEVICE = """
+import contextlib, io, os, sys, tempfile
+import torch
+assert not torch.cuda.is_available()
+torch.set_num_threads(2)
+from multi_orbslam3_tpu_torch.apps import (run_client, run_collab_sim, run_mono, run_server,
+                                           run_slam, train_vocabulary)
+from multi_orbslam3_tpu_torch.collab.transport import SocketTransportServer
+from multi_orbslam3_tpu_torch.eval import benchmarks as B
+tmp = tempfile.mkdtemp()
+srv = SocketTransportServer()
+
+def app(main, *argv):
+    def run(d):
+        sys.argv = ["app", *argv] + ([] if d is None else ["--device", d])
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+            main()
+    return run
+
+calls = {
+    "bench_mono": lambda d: B.bench_mono(n_frames=1, device=d),
+    "bench_stereo": lambda d: B.bench_stereo(n_frames=1, device=d),
+    "bench_mono_inertial": lambda d: B.bench_mono_inertial(n_frames=1, device=d),
+    "bench_collab": lambda d: B.bench_collab(n_agents=1, n_frames=1, warmup=False, device=d),
+    "bench_gba_large": lambda d: B.bench_gba_large(8, 256, 32, 1, 2, device=d),
+    "bench_vocab_selectivity": lambda d: B.bench_vocab_selectivity(1, 2, device=d),
+    "bench_mini_asl": lambda d: B.bench_mini_asl(n_frames=1, device=d),
+    "run_slam": app(run_slam.main, "--out", f"{tmp}/s", "--frames", "1", "--no-loop-closing"),
+    "run_mono": app(run_mono.main, "--out", f"{tmp}/m", "--frames", "1", "--no-loop-closing"),
+    "run_collab_sim": app(run_collab_sim.main, "--out", f"{tmp}/c", "--agents", "1",
+                          "--frames", "1"),
+    "run_server": app(run_server.main, "--port", "0", "--out", f"{tmp}/srv", "--duration", "0",
+                      "--small"),
+    "run_client": app(run_client.main, "--agent", "0", "--server", f"127.0.0.1:{srv.port}",
+                      "--out", f"{tmp}/cl", "--frames", "1", "--small"),
+    "train_vocabulary": app(train_vocabulary.main, "--worlds", "1", "--frames", "1",
+                            "--branching", "2", "--depth", "2", "--out", f"{tmp}/v.npz"),
+    # too heavy for the CPU here (the plain K2 at 16384 x 1024), or no
+    # dataset: only the default is checked
+    "bench_kernels": lambda d: None if d else B.bench_kernels(),
+    "bench_euroc": lambda d: None if d else B.bench_euroc(tmp),
+}
+for name, fn in calls.items():
+    try:
+        fn(None)
+        print(name, "ran")
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e) and name.replace("run_mono", "run_slam") in str(e), e
+        print(name, "raised")
+    fn("cpu")
+srv.close()
+for f in ("s/report.json", "m/report.json", "c/report.json", "srv/server_map.npz",
+          "cl/KeyFrameTrajectory.txt", "v.npz"):
+    assert os.path.exists(os.path.join(tmp, f)), f
+print("outputs written")
+"""
+
 
 def test_helpers_and_collab_entry_points_default_to_the_card():
     """device=None is the CUDA device for the vocabulary, database and
     checkpoint helpers and for CollabClient/CollabServer: without a card
-    each raises, and device="cpu" runs."""
+    each raises, and device="cpu" runs. The same holds for the harness:
+    every benchmark function (device=None) and every app (no --device)
+    raises naming itself, and runs with "cpu" (one frame each)."""
     r = _python("-c", _HELPERS_WITHOUT_A_DEVICE)
     assert r.returncode == 0, r.stderr
     lines = r.stdout.strip().splitlines()
@@ -262,6 +330,14 @@ def test_helpers_and_collab_entry_points_default_to_the_card():
         "default_vocabulary", "load_vocabulary", "train_vocabulary",
         "KeyframeDatabase.empty", "load_map", "CollabClient", "CollabServer")]
     assert lines[-1] == "inertial client ran"
+    r = _python("-c", _HARNESS_WITHOUT_A_DEVICE)
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.strip().splitlines()
+    assert lines[:-1] == [f"{n} raised" for n in (
+        "bench_mono", "bench_stereo", "bench_mono_inertial", "bench_collab", "bench_gba_large",
+        "bench_vocab_selectivity", "bench_mini_asl", "run_slam", "run_mono", "run_collab_sim",
+        "run_server", "run_client", "train_vocabulary", "bench_kernels", "bench_euroc")]
+    assert lines[-1] == "outputs written"
 
 
 def test_the_ports_padding_module_is_a_byte_identical_copy():
