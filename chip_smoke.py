@@ -141,14 +141,22 @@ failure:
    path), then apps.run_slam (60 frames) and apps.run_server with two
    apps.run_client processes over localhost TCP at full width, gated like
    tests/test_multiprocess.py (merges printed). A failed gate is raised at
-   the end, after the kernels line.
+   the end, after the kernels line;
+17. profiling: the port's profilers (multi_orbslam3_tpu_torch/profiling/)
+   at the JAX scripts' shapes (phase_profiling): profile_stages,
+   profile_scatter, profile_covis, profile_mono with a torch.profiler
+   trace of frames 60-79 of the mono loop (busy share, top device ops,
+   launches a frame) and profile_ab_u8, one JSON line each. Gated on the
+   formulations' agreement, K1 and a fused K2 launched in the mono timed
+   pass and a busy share in (0, 1]; a failed gate is raised at the end,
+   after the kernels line.
 
 The kernels phase also holds K2's fused matches at the collaborative
 arena's shapes: the validity match at 32768 x 32768 (about 4% and about
 75% valid, both inner products) and the projection match at 32768 x 1024.
 
 Kernel launch counts are reset just before each driven path (the timed
-passes of 3 and 4, 5 to 12, and the benchmarks of 16; the apps of 16
+passes of 3 and 4, 5 to 12, the benchmarks of 16 and each profiler of 17; the apps of 16
 run in processes of their own, whose launches are not counted) and read just after it; each fails unless
 K1 and a K2 kernel were launched. The last three lines of stdout are the
 card's nvidia-smi name/power-limit line, a JSON summary of the kernels
@@ -166,6 +174,7 @@ import json
 import subprocess
 import sys
 import time
+import traceback
 
 sys.modules["jax"] = None        # any import of JAX or of the JAX package
 sys.modules["multi_orbslam3_tpu"] = None     # below fails loudly
@@ -350,22 +359,11 @@ def device_ms(fn, kernel_name: str, launches: int = 50) -> tuple:
 
 
 def device_launches(fn) -> int:
-    """Kernels and device copies that one call of fn launches, counted by
-    torch.profiler (0 if the profiler shows no device activity)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    n = 0
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        if us > 0:
-            n += evt.count
-    return n
+    """Kernels, memcpys and memsets that one call of fn issues, read from
+    torch.profiler's device events (profiling/common.py: each counted once,
+    not also through the host op that launched it)."""
+    from multi_orbslam3_tpu_torch.profiling import common
+    return common.launches(fn, torch.device("cuda"))
 
 
 def bound(card: dict, nbytes: float, popc: float = 0.0, fp32_instr: float = 0.0,
@@ -2092,6 +2090,98 @@ def phase_harness(card: dict) -> dict:
     return finish_phase("harness", res, problems)
 
 
+def bench_kernels_k1_bound(card: dict) -> dict:
+    """bound_ms of bench_kernels' K1 call: its input (eval/benchmarks.py::
+    bench_kernels' one 480x752 level of RandomState(0) noise, threshold
+    20) counted as check_k1 counts a level."""
+    img = torch.from_numpy(np.random.RandomState(0).uniform(0, 255, (480, 752))
+                           .astype(np.float32)).cuda()
+    interior, passing = compass_pass_count([img], 20.0)
+    return bound(card, 8.0 * img.numel(), fp32_instr=16.0 * interior,
+                 minmax_instr=8.0 * interior + 158.0 * passing)
+
+
+def phase_profiling(device: str = "cuda") -> dict:
+    """The port's profilers (multi_orbslam3_tpu_torch/profiling/) on the
+    card at the JAX scripts' shapes, each printing one JSON line:
+    profile_stages, profile_scatter, profile_covis, then profile_mono with
+    its trace pass (frames 60-79) on the mono loop, then profile_ab_u8's
+    float32 arm; its uint8 arm is profile_mono's timed pass, the same run.
+    Cuts: profile_mono and the float32 arm run without their warm-up
+    passes: this phase runs after every other phase in this process, so
+    every kernel is built and loaded and the allocator has grown. The
+    hand kernels' launches of all five are counted. Fails unless every
+    profiler returns, each covis formulation equals the count of its kind
+    and the chunked arena matrix the one-chunk one, the one-hot assemblies
+    lie within 1e-5 (float32, allclose) and 1e-2 of the largest entry
+    (bf16) of index_add's, the grouped and scatter solves of the test_opt
+    window agree (poses 1e-4, points 1e-3), K1 was launched once a frame
+    and a fused K2 match at least once in profile_mono's timed pass, and
+    the traced window's busy share lies in (0, 1]."""
+    from multi_orbslam3_tpu_torch.frontend import kernels
+    from multi_orbslam3_tpu_torch.profiling import (profile_ab_u8, profile_covis, profile_mono,
+                                                    profile_scatter, profile_stages)
+    start_phase()
+    total = collections.Counter()
+    seconds, out, problems = {}, {}, []
+    cuts = ["profile_mono: no warm-up pass", "profile_ab_u8 float32 arm: no warm-up pass",
+            "profile_ab_u8 uint8 arm: profile_mono's timed pass"]
+
+    def profile(name, fn):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        try:
+            out[name] = fn()
+        except Exception as e:          # a profiler that fails fails the phase
+            traceback.print_exc()
+            problems.append(f"{name} raised {type(e).__name__}: {e}")
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t
+        launches = kernels.launch_counts()
+        total.update(launches)
+        if name in out:
+            emit(name, seconds=seconds[name], kernel_launches=launches, **out[name])
+
+    profile("profile_stages", lambda: profile_stages.run(device=device))
+    profile("profile_scatter", lambda: profile_scatter.run(device=device))
+    profile("profile_covis", lambda: profile_covis.run(device=device))
+    profile("profile_mono", lambda: profile_mono.run("mono", trace=True, warmup=False,
+                                                     device=device))
+    mono = out.get("profile_mono")
+    u8_arm = None if mono is None else {
+        "u8": True, "fps": mono["fps"], "wall_s": mono["wall_s"], "warmup": False,
+        "stats": mono["stats"], "from": "profile_mono's timed pass"}
+    profile("profile_ab_u8", lambda: profile_ab_u8.run(warmup=False, u8_arm=u8_arm,
+                                                       device=device))
+
+    covis = out.get("profile_covis")
+    if covis is not None and not (covis["all_agree"]
+                                  and covis["covisibility_matrix_arena"]["chunks_agree"]):
+        problems.append(f"covis formulations disagree: {covis['agree']}, arena chunks "
+                        f"{covis['covisibility_matrix_arena']['chunks_agree']}")
+    scatter = out.get("profile_scatter")
+    if scatter is not None:
+        ag = scatter["agreement"]
+        if not (ag["onehot_f32_allclose"] and ag["onehot_bf16_E_rel"] <= 1e-2
+                and ag["onehot_bf16_Hpp_rel"] <= 1e-2):
+            problems.append(f"one-hot assemblies off index_add's: {ag}")
+        if not (ag["window_poses_max_abs"] <= 1e-4 and ag["window_points_max_abs"] <= 1e-3):
+            problems.append(f"grouped and scatter BA disagree on the test_opt window: {ag}")
+    busy = None
+    if mono is not None:
+        check_launches(mono["launches"], problems, k1_expected=mono["frames"])
+        busy = mono["trace"].get("busy_share")
+        if busy is None or not 0.0 < busy <= 1.0:
+            problems.append(f"the mono trace's busy share is {busy}, not in (0, 1]")
+    res = {"seconds_by_profiler": seconds, "cuts": cuts,
+           "launches": {k: total[k] for k in kernels.launch_counts()},
+           "mono_busy_share": busy,
+           "mono_top_device_ops": None if mono is None else mono["trace"].get("top_device_ops"),
+           "problems": problems}
+    return finish_phase("profiling", res, problems)
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -2150,21 +2240,29 @@ def main() -> int:
         failed.append(e)
         res_h = e.res
     seconds["harness"] = round(time.perf_counter() - t, 3)
+    t = time.perf_counter()
+    try:
+        res_p = phase_profiling()
+    except PhaseFailed as e:
+        failed.append(e)
+        res_p = e.res
+    seconds["profiling"] = round(time.perf_counter() - t, 3)
     emit("total", seconds_by_phase=seconds,
          total_s=round(time.perf_counter() - T_START, 3))
     paths = (res, res_off, res_reloc, res_atlas, res_stereo, res_rgbd, res_mi, res_si,
-             res_collab, res_ci, res_h)
+             res_collab, res_ci, res_h, res_p)
     # the harness's kernel micro-bench (eval/benchmarks.py::bench_kernels,
     # the JAX package's shapes): its mean ms a call, beside each row
     bk = res_h["bench_kernels"]
     bench_rows = {"fast_score_nms_levels": {
         "shape": [480, 752], "inputs": "noise, one level, threshold 20",
         "kernel_ms": bk["fast_kernel_ms"], "plain_ms": bk["fast_plain_ms"],
-        "equal": bk["fast_equal"]},
+        "equal": bk["fast_equal"], **bench_kernels_k1_bound(card)},
         "hamming_matrix": {
         "shape": [16384, 1024], "inputs": "random words",
         "kernel_ms": bk["hamming_kernel_ms"], "plain_ms": bk["hamming_plain_ms"],
-        "equal": bk["hamming_equal"]}}
+        "equal": bk["hamming_equal"],
+        **bound(card, 32.0 * (16384 + 1024) + 4.0 * 16384 * 1024, popc=8.0 * 16384 * 1024)}}
     entries = []
     for name, k in KERNELS.items():
         variants = []

@@ -21,6 +21,8 @@ counterpart is found under the same path:
                   the JAX package, readable by both).
 - ``interop``   — numpy in/out of MapState, FrameFeatures, StereoDepth,
                   Preintegrated (parity tests).
+- ``profiling`` — per-stage timings, wall-time buckets and device traces
+                  (busy share, top device ops, launches a frame).
 
 - ``config``, ``dataio.synthetic``, ``eval.ate`` — the port's own copies of
                   the JAX package's numpy-only modules.

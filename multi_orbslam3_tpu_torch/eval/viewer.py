@@ -7,8 +7,9 @@ image with PIL's PNG encoder (the one dataio/mini_asl.py writes frames
 with):
 
 - ``plot_map``: a top-down (x-z) view of the map on a white canvas,
-  landmarks as grey dots, each agent's keyframe centres as a coloured
-  polyline with dots (the JAX package's colours), the ground-truth
+  landmarks as grey dots, each agent's keyframe centres (or, given
+  ``kf_map``, each sub-map's) as a coloured polyline with dots (the JAX
+  package's colours), the ground-truth
   centres as a dashed black line; the title goes into the PNG's ``Title``
   text chunk (the raster has no fonts, so no legend either);
 - ``plot_frame``: the frame in grey with a ring at every keypoint, green
@@ -90,14 +91,17 @@ def _top_down(pts_xz: np.ndarray, size: int = _MAP_PX, margin: int = 24):
 
 
 def plot_map(m: MapState, path: str, title: str = "map",
+             kf_map: Optional[np.ndarray] = None,
              gt_centers: Optional[np.ndarray] = None) -> None:
     """Top-down (x-z) map snapshot (MapDrawer::DrawMapPoints/DrawKeyFrames
-    analog), keyframes coloured by agent."""
+    analog), keyframes coloured by agent, or by sub-map where kf_map
+    ((max_kf,) sub-map id of each keyframe slot) is given (the server's
+    view over all agents' maps, ServerViewer analog)."""
     mp_valid = _host(m.mp_valid).astype(bool)
     mp = _host(m.mp_pos)[mp_valid]
     kf_valid = _host(m.kf_valid).astype(bool)
     poses = _host(m.kf_pose)[kf_valid]
-    agents = _host(m.kf_agent)[kf_valid]
+    groups = _host(m.kf_agent if kf_map is None else kf_map)[kf_valid]
     centers = -np.einsum("nji,nj->ni", poses[:, :3, :3], poses[:, :3, 3]) \
         if len(poses) else np.zeros((0, 3))
     gt = np.zeros((0, 3)) if gt_centers is None else np.asarray(gt_centers)
@@ -105,8 +109,8 @@ def plot_map(m: MapState, path: str, title: str = "map",
     to_px = _top_down(np.concatenate([mp, centers, gt])[:, [0, 2]])
     if len(mp):
         _dots(img, to_px(mp[:, [0, 2]]), _LANDMARK)
-    for a in np.unique(agents):
-        rc = to_px(centers[agents == a][:, [0, 2]])
+    for a in np.unique(groups):
+        rc = to_px(centers[groups == a][:, [0, 2]])
         color = _AGENT_COLORS[int(a) % len(_AGENT_COLORS)]
         _polyline(img, rc, color)
         _dots(img, rc, color, radius=2)

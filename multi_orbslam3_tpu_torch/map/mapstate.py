@@ -380,14 +380,30 @@ def kf_mp_mask(m: MapState) -> torch.Tensor:
     return mask[:, :P] & m.mp_valid[None, :]
 
 
-def covisibility_matrix(m: MapState) -> torch.Tensor:
+def covisibility_matrix(m: MapState, chunk: int = 8192) -> torch.Tensor:
     """(K, K) int32 shared-landmark counts (0 on the diagonal), W = A A^T
-    over the observation mask. The JAX package multiplies in bf16 with a
-    float32 result; a bf16 torch matmul returns bf16, which rounds counts
-    above 256, so this one runs in float32 (TF32 is off package-wide):
-    every count is an exact integer below 2^24."""
-    A = kf_mp_mask(m).to(_F32)
-    W = A @ A.T
+    over the observation mask A, with the landmark axis in chunks: each
+    chunk's (K, chunk) block of A is built as bool straight from kf_mp and
+    cast to float32 for its product, so the whole (K, P) mask never exists.
+    The JAX package multiplies in bf16 with a float32 result; a bf16 torch
+    matmul returns bf16, which rounds counts above 256, so the products run
+    in float32 (TF32 is off package-wide): every count is an exact integer
+    below 2^24. At the 4-agent arena (2,048 keyframes x 1,024 features,
+    65,536 landmarks) the call's peak above the map is 148 MiB on an H100,
+    against 820 MiB in one chunk (profiling/profile_covis.py)."""
+    K, N = m.kf_mp.shape
+    P = m.max_mp
+    ok = (m.kf_mp >= 0) & m.kf_feat_valid & m.kf_valid[:, None]
+    rows = torch.arange(K, device=m.device).repeat_interleave(N)
+    W = torch.zeros((K, K), dtype=_F32, device=m.device)
+    for c0 in range(0, P, chunk):
+        width = min(chunk, P - c0)
+        inside = ok & (m.kf_mp >= c0) & (m.kf_mp < c0 + width)
+        cols = torch.where(inside, m.kf_mp - c0, width).reshape(-1).long()
+        A = torch.zeros((K, width + 1), dtype=torch.bool, device=m.device)
+        A = A.index_put((rows, cols), torch.ones_like(cols, dtype=torch.bool))
+        A = (A[:, :width] & m.mp_valid[None, c0:c0 + width]).to(_F32)
+        W = W + A @ A.T
     return (W - torch.diag(torch.diagonal(W))).to(_I32)
 
 

@@ -2,8 +2,9 @@
 of multi_orbslam3_tpu/opt/local_ba.py):
 
     Hcc (Kw,6,6), Hpp (Pw,3,3), E (Kw,Pw,6,3) by scatter-adds over the
-    observations; S = blockdiag(Hcc) - E C^-1 E^T is one (6Kw x 3Pw) x
-    (3Pw x 6Kw) matmul; dc = solve(S, -rhs); dp = -C^-1 (b_p + E^T dc).
+    observations (or, with grouped=True, block sums and one-hot matmuls);
+    S = blockdiag(Hcc) - E C^-1 E^T is one (6Kw x 3Pw) x (3Pw x 6Kw)
+    matmul; dc = solve(S, -rhs); dp = -C^-1 (b_p + E^T dc).
 
 Levenberg damping with step rejection over a fixed number of iterations;
 no value is read back to the host. Stereo observations (u_r >= 0) add a
@@ -81,11 +82,38 @@ def inv3x3(A: torch.Tensor) -> torch.Tensor:
     return adj * inv_det[..., None, None]
 
 
+# elements of one one-hot block of the grouped assembly: 64 MiB in float32,
+# 4 keyframes of a 1,024-feature, 4,096-landmark window a matmul
+_ONEHOT_ELEMS = 1 << 24
+
+
+def onehot_blocks(pt_k: torch.Tensor, prod: torch.Tensor, Pw: int) -> torch.Tensor:
+    """The landmark-side sums of the grouped assembly (counterpart of the
+    JAX package's _grouped_point_blocks): pt_k (Kw,N) landmark indices of
+    each window keyframe's observations, prod (Kw,N,C) their products ->
+    (Kw,Pw,C), keyframe k's one-hot (N,Pw) transposed times its products.
+    Zero-weight rows carry zero products, so no masking is needed. The
+    (c,N,Pw) one-hot of c keyframes at a time stays within _ONEHOT_ELEMS."""
+    Kw, N = pt_k.shape
+    cols = torch.arange(Pw, device=pt_k.device)
+    c = max(1, _ONEHOT_ELEMS // (N * Pw))
+    return torch.cat([
+        torch.bmm((pt_k[k:k + c, :, None] == cols).to(prod.dtype).transpose(1, 2),
+                  prod[k:k + c]) for k in range(0, Kw, c)])
+
+
 def bundle_adjust(poses: torch.Tensor, fixed: torch.Tensor, points: torch.Tensor,
                   obs: BAObservations, K: cam.PinholeK, iters: int = 10,
-                  chi2_th: float = robust.CHI2_MONO, bf=0.0) -> BAResult:
+                  chi2_th: float = robust.CHI2_MONO, structure_only: bool = False,
+                  bf=0.0, grouped: bool = False) -> BAResult:
     """poses (Kw,4,4) T_cw; fixed (Kw,) bool anchors; points (Pw,3); bf =
-    baseline * fx, used only when obs.u_r is present."""
+    baseline * fx, used only when obs.u_r is present.
+
+    structure_only: each step moves the seen landmarks by -C^-1 b_p and
+    leaves the poses as they are. grouped: the observations are laid out
+    (Kw, N) row-major (obs.kf == repeat(arange(Kw), N)); Hcc and b_c are
+    then block sums and E, Hpp and b_p one-hot matmuls in place of the
+    scatter-adds."""
     Kw = poses.shape[0]
     Pw = points.shape[0]
     dev, dt = poses.device, poses.dtype
@@ -113,23 +141,38 @@ def bundle_adjust(poses: torch.Tensor, fixed: torch.Tensor, points: torch.Tensor
         w = torch.where(obs.valid & ~behind, w, 0.0)
         Jc_w = J_cam * w[:, None, None]
         Jp_w = J_pt * w[:, None, None]
+        prod_Hpp = torch.einsum("ori,orj->oij", J_pt, Jp_w)
+        prod_bp = torch.einsum("ori,or->oi", Jp_w, r)
 
-        Hcc = torch.zeros((Kw, 6, 6), dtype=dt, device=dev).index_add(
-            0, kf, torch.einsum("ori,orj->oij", J_cam, Jc_w))
-        b_c = torch.zeros((Kw, 6), dtype=dt, device=dev).index_add(
-            0, kf, torch.einsum("ori,or->oi", Jc_w, r))
-        Hpp = torch.zeros((Pw, 3, 3), dtype=dt, device=dev).index_add(
-            0, pt, torch.einsum("ori,orj->oij", J_pt, Jp_w))
-        b_p = torch.zeros((Pw, 3), dtype=dt, device=dev).index_add(
-            0, pt, torch.einsum("ori,or->oi", Jp_w, r))
-        E = torch.zeros((Kw * Pw, 6, 3), dtype=dt, device=dev).index_add(
-            0, kf * Pw + pt, torch.einsum("ori,orj->oij", Jc_w, J_pt)
-        ).reshape(Kw, Pw, 6, 3)
+        if grouped and not structure_only:
+            N = pt.shape[0] // Kw
+            Hcc = torch.einsum("ori,orj->oij", J_cam, Jc_w).reshape(Kw, N, 6, 6).sum(1)
+            b_c = torch.einsum("ori,or->oi", Jc_w, r).reshape(Kw, N, 6).sum(1)
+            blocks = onehot_blocks(pt.reshape(Kw, N), torch.cat([
+                torch.einsum("ori,orj->oij", Jc_w, J_pt).reshape(Kw, N, 18),
+                prod_Hpp.reshape(Kw, N, 9), prod_bp.reshape(Kw, N, 3)], -1), Pw)
+            E = blocks[..., :18].reshape(Kw, Pw, 6, 3)
+            rest = blocks[..., 18:].sum(0)
+            Hpp, b_p = rest[:, :9].reshape(Pw, 3, 3), rest[:, 9:]
+        else:
+            Hpp = torch.zeros((Pw, 3, 3), dtype=dt, device=dev).index_add(0, pt, prod_Hpp)
+            b_p = torch.zeros((Pw, 3), dtype=dt, device=dev).index_add(0, pt, prod_bp)
+            if not structure_only:
+                Hcc = torch.zeros((Kw, 6, 6), dtype=dt, device=dev).index_add(
+                    0, kf, torch.einsum("ori,orj->oij", J_cam, Jc_w))
+                b_c = torch.zeros((Kw, 6), dtype=dt, device=dev).index_add(
+                    0, kf, torch.einsum("ori,or->oi", Jc_w, r))
+                E = torch.zeros((Kw * Pw, 6, 3), dtype=dt, device=dev).index_add(
+                    0, kf * Pw + pt, torch.einsum("ori,orj->oij", Jc_w, J_pt)
+                ).reshape(Kw, Pw, 6, 3)
 
         hpp_diag = torch.diagonal(Hpp, dim1=-2, dim2=-1)
         Hpp_d = Hpp + lam * eye3 * torch.clamp(hpp_diag.mean(-1), min=1e-3)[:, None, None]
         pt_seen = hpp_diag.sum(-1) > 1e-9
         C_inv = inv3x3(torch.where(pt_seen[:, None, None], Hpp_d, eye3))
+        if structure_only:
+            dp = -torch.einsum("pab,pb->pa", C_inv, b_p)
+            return poses_, points_ + torch.where(pt_seen[:, None], dp, 0.0)
 
         EC = torch.einsum("kpab,pbc->kpac", E, C_inv)             # (Kw,Pw,6,3)
         A = EC.permute(0, 2, 1, 3).reshape(Kw * 6, Pw * 3)

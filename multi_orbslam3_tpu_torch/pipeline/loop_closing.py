@@ -278,6 +278,11 @@ def _pr_step(db: dbm.KeyframeDatabase, voc: Vocabulary, m: MapState, kf):
     return scores, db2
 
 
+# a loop or merge is welded only on this many Sim3 RANSAC inlier pairs
+# (upstream's Sim3Solver minimum, nBoWInliers); see LoopCloser._supported
+MIN_SIM3_INLIERS = 15
+
+
 class LoopCloser:
     """Host-side loop-closing controller: detection bookkeeping and
     correction dispatch, one per map."""
@@ -330,7 +335,7 @@ class LoopCloser:
                 kf - self._last_loop_kf >= self.min_interval_kfs:
             cand_kf = self._pending_cand
             casc = verify_candidate_cascade(m, kf, cand_kf, self._gen, K, **cascade_kw)
-            if casc.ok:
+            if casc.ok and self._supported(casc):
                 self._pending_cand = -1
                 return self._accept(m, kf, cand_kf, casc, K, width, height,
                                     scale_factor, n_levels, fix_scale, yaw_only)
@@ -362,7 +367,7 @@ class LoopCloser:
                     abs(float(m.kf_timestamp[kf]) - float(m.kf_timestamp[cand_kf])) < 5.0:
                 continue
             casc = verify_candidate_cascade(m, kf, cand_kf, self._gen, K, **cascade_kw)
-            if not casc.ok:
+            if not (casc.ok and self._supported(casc)):
                 if casc.S is not None and self._pending_cand < 0:
                     self._pending_cand = cand_kf
                     self._pending_tries = 3
@@ -371,6 +376,18 @@ class LoopCloser:
             return self._accept(m, kf, cand_kf, casc, K, width, height,
                                 scale_factor, n_levels, fix_scale, yaw_only)
         return m
+
+    def _supported(self, casc: CascadeResult) -> bool:
+        """A verified cascade is accepted only on at least MIN_SIM3_INLIERS
+        landmark pairs of its Sim3 RANSAC (upstream's Sim3Solver minimum in
+        LoopClosing::DetectCommonRegionsFromBoW, nBoWInliers = 15); the
+        cascade itself seeds on 8. Its projection gate cannot catch a Sim3
+        that a few pairs got wrong in scale: such an error scales the
+        candidate region about the current camera and leaves its
+        projections in place, in the current keyframe and its near
+        neighbours alike. Unsupported, the candidate is retried on the next
+        keyframes like a projection miss."""
+        return int(torch.sum(casc.lm.valid & casc.inliers)) >= MIN_SIM3_INLIERS
 
     def _accept(self, m: MapState, kf: int, cand_kf: int, casc: CascadeResult,
                 K, width: int, height: int, scale_factor: float, n_levels: int,
