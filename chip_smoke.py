@@ -14,27 +14,38 @@ failure:
    - K1 (FAST score + NMS) level by level at the 8 pyramid-level shapes of
      the 752x480 bench camera and as ONE launch for the whole pyramid, on
      a rendered frame and on noise;
-   - K2 as a matrix at 16384x1024, 1024x1024 and 16384x16384;
+   - K2 as a matrix (the tensor-core writer) at 16384x1024, 1024x1024 and
+     16384x16384, timed in turns with torch._int_mm, cuBLASLt's int8
+     product, on the descriptors unpacked once to +-1 int8 (which gives
+     256 - 2 x the distance; the unpack is library_prep_ms): the library
+     yardstick, which the port never calls;
    - K2's fused matches, which write no N x M: the validity-masked one
      (both inner products, __popc and the 1-bit tensor-core MMA) at the
      same three shapes, the projection-masked one at 16384x1024 and
-     1024x1024, and the stereo-masked one at 1024x1024 (also on a case
-     that puts pairs exactly on the row tolerance and the disparity
-     limits), on random descriptors with about 25% of rows and columns
+     1024x1024, on random descriptors with about 25% of rows and columns
      invalid and on a tie case (every 7th descriptor duplicated, one
      fully masked row and column); the inner products are also timed with
      every row and column valid and, at 16384x16384, with about 4% valid
      (the loop closer's masks); the matchers are checked to allocate no
-     N x M tensor.
+     N x M tensor;
+   - K2's stereo match (the row-band search) at 1024x1024 on random and
+     tie cases, on pairs exactly on the row tolerance and the disparity
+     limits, on ties that reach a row out of column order and on rows
+     whose band is empty or lies at the image's first or last row, and at
+     4096x4096 (its capacity, a KITTI-size 1241x376 frame).
    Each row has call_ms (median time of one call between CUDA events,
    host launch latency included), device_ms (the kernel's own duration:
    torch.profiler's device self time over 50 launches, or 50 launches
    replayed from a CUDA graph if the profiler shows none), plain_ms, and
    bound_ms: the least time the card could take, from this run's inputs
-   (bytes over 3.35 TB/s; popcounts over 16 a clock an SM; float
-   add/multiply over 128 and min/max/compare over 64 a clock an SM;
-   1-bit MMA steps at the int8 tensor rate), with the limit that binds. No single PyTorch call
-   computes either function, so library_ms is null;
+   (bytes over 3.35 TB/s; Hamming distances on the tensor cores, 2 x 256
+   int8 operations a pair at 1,979 TOP/s, for the pairs these inputs
+   need; float add/multiply over 128 and min/max/compare over 64 a clock
+   an SM), with the limit that binds; K2's rows also carry popc_bound_ms,
+   the same bound with the distances counted by __popc (16 a clock an SM,
+   8 a pair). library_ms is torch._int_mm's device time for the matrix
+   and null for the rest: no PyTorch call computes a fused best-two match
+   or a FAST score;
 3. slice: bench_mono as the JAX package scores it: the port's MonoSlam
    with loop closing on (the default) and the bundled k=10 L=5 vocabulary
    on the bench sequence (752x480, 120 frames, 1500 landmarks, seed 5,
@@ -196,21 +207,20 @@ KERNELS = {
         "replaces": "multi_orbslam3_tpu/frontend/pallas_kernels.py:169",
         "headline": "hamming_best_two_projection",
         "variants": {
-            "hamming_matrix": "multi_orbslam3_tpu_torch/csrc/hamming.cu",
+            "hamming_matrix": "multi_orbslam3_tpu_torch/csrc/hamming_mma.cu",
             "hamming_best_two_valid_popc": "multi_orbslam3_tpu_torch/csrc/hamming.cu",
             "hamming_best_two_valid_mma": "multi_orbslam3_tpu_torch/csrc/hamming_mma.cu",
             "hamming_best_two_projection": "multi_orbslam3_tpu_torch/csrc/hamming.cu",
-            "hamming_best_two_stereo": "multi_orbslam3_tpu_torch/csrc/hamming.cu"}},
+            "hamming_best_two_stereo": "multi_orbslam3_tpu_torch/csrc/stereo_band.cu"}},
 }
 
-# Peak rates the bounds are taken against (one H100 SXM): HBM bytes/s from
-# the data sheet; __popc results, float32 add/multiply and float32 min/max
-# or compare instructions per clock per SM from the arithmetic-throughput
-# table of NVIDIA's CUDA documentation for compute capability 9.0 (the
-# data sheet's 67 TFLOP/s is 128 FMA a clock an SM, an FMA counted as 2);
-# the 1-bit MMA is given the int8 tensor rate by operand bytes (a k=256
-# step of 1-bit operands moves what a k=32 step of int8 does), since no
-# 1-bit peak is published.
+# Peak rates the bounds are taken against (one H100 SXM): HBM bytes/s and
+# the dense int8 tensor rate from the data sheet (the rate at which +-1
+# int8 vectors give Hamming distances; no 1-bit peak is published); __popc
+# results, float32 add/multiply and float32 min/max or compare
+# instructions per clock per SM from the arithmetic-throughput table of
+# NVIDIA's CUDA documentation for compute capability 9.0 (the data sheet's
+# 67 TFLOP/s is 128 FMA a clock an SM, an FMA counted as 2).
 HBM_BYTES_PER_S = 3.35e12
 POPC_PER_CLK_SM = 16
 FP32_INSTR_PER_CLK_SM = 128
@@ -343,6 +353,12 @@ def device_ms(fn, kernel_name: str, launches: int = 50) -> tuple:
                 count += evt.count
     if count >= launches:
         return total_us / count / 1e3, "profiler"
+    return graph_ms(fn, launches), "cuda_graph"
+
+
+def graph_ms(fn, launches: int) -> float:
+    """The mean time of one call of fn, from a CUDA graph of `launches`
+    calls replayed between two events."""
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(launches):
@@ -355,7 +371,7 @@ def device_ms(fn, kernel_name: str, launches: int = 50) -> tuple:
     graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / launches, "cuda_graph"
+    return start.elapsed_time(end) / launches
 
 
 def device_launches(fn) -> int:
@@ -366,20 +382,30 @@ def device_launches(fn) -> int:
     return common.launches(fn, torch.device("cuda"))
 
 
-def bound(card: dict, nbytes: float, popc: float = 0.0, fp32_instr: float = 0.0,
-          minmax_instr: float = 0.0, mma_int8_ops: float = 0.0) -> dict:
+def bound(card: dict, nbytes: float, hamming_pairs: float = 0.0, fp32_instr: float = 0.0,
+          minmax_instr: float = 0.0) -> dict:
     """The least time the card could take: the largest of the bytes over
-    the HBM rate and each kind of operation over its peak rate."""
+    the HBM rate, the Hamming distances of `hamming_pairs` pairs on the
+    tensor cores (2 x 256 int8 operations a pair: +-1 vectors give
+    256 - 2 x the distance) and the float operations over their peak rate.
+    Where there are Hamming pairs, popc_bound_ms is the same bound with
+    the distances counted by __popc instead (8 a pair at 16 a clock an SM),
+    the instruction the fused matches count bits with."""
     clk = card["sm_count"] * card["max_sm_clock_hz"]
     limits = {"bytes": nbytes / HBM_BYTES_PER_S,
-              "popcount rate": popc / (POPC_PER_CLK_SM * clk),
+              "products at the int8 tensor rate":
+                  2.0 * 256.0 * hamming_pairs / INT8_TENSOR_OPS_PER_S,
               "float ops": (fp32_instr / FP32_INSTR_PER_CLK_SM
-                            + minmax_instr / MINMAX_PER_CLK_SM) / clk,
-              "1-bit MMA at the int8 tensor rate": mma_int8_ops / INT8_TENSOR_OPS_PER_S}
+                            + minmax_instr / MINMAX_PER_CLK_SM) / clk}
     limit = max(limits, key=limits.get)
-    return {"bound_ms": limits[limit] * 1e3,
-            "bound_by": "bytes" if limit == "bytes" else "operations",
-            "limit": limit}
+    out = {"bound_ms": limits[limit] * 1e3,
+           "bound_by": "bytes" if limit == "bytes" else "operations",
+           "limit": limit}
+    if hamming_pairs:
+        popc = dict(limits, **{"products at the int8 tensor rate":
+                               8.0 * hamming_pairs / (POPC_PER_CLK_SM * clk)})
+        out["popc_bound_ms"] = max(popc.values()) * 1e3
+    return out
 
 
 # EuRoC cam0 body-from-camera extrinsics (eval/benchmarks.py::EUROC_T_BC)
@@ -570,8 +596,32 @@ def check_k1(frame: np.ndarray, frame_right: np.ndarray, cfg, card: dict, gen) -
 
 
 
+def all_device_ms(fn, launches: int) -> tuple:
+    """(ms, how): the mean device time of one call of fn, for a library
+    call whose kernels' names are not known in advance: the durations of
+    every kernel, memcpy and memset that `launches` calls issued, from
+    torch.profiler's device events, over `launches`; if the profiler shows
+    fewer events than calls, from a CUDA graph of the calls (graph_ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    from multi_orbslam3_tpu_torch.profiling import common
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    events = common._device_events(prof)
+    if len(events) < launches:
+        return graph_ms(fn, launches), "cuda_graph"
+    return sum(e[2] for e in events) / 1e6 / launches, "profiler"
+
+
 def check_k2_matrix(cfg, card: dict, gen) -> dict:
-    """K2 as a matrix."""
+    """K2 as a matrix (the tensor-core writer), with cuBLASLt's int8
+    product as its yardstick: torch._int_mm on the descriptors unpacked
+    once to +-1 int8 (kernels.unpack_pm1, timed as library_prep_ms) gives
+    256 - 2 x the distance for the same N x M int32 output; the port never
+    calls it. Kernel and library are timed in turns, twice each."""
     from multi_orbslam3_tpu_torch.frontend import kernels
     dev = torch.device("cuda")
     shapes = k2_shapes(cfg)
@@ -583,17 +633,37 @@ def check_k2_matrix(cfg, card: dict, gen) -> dict:
         ref = kernels.hamming_matrix_ref(d1, d2)
         require_equal(f"K2 matrix {n}x{m}", [got], [ref])
         err = int((got - ref).abs().max())
-        del got, ref
-        reps = 5 if n * m > 2 ** 26 else 15
-        ms, how = device_ms(lambda: kernels.hamming_matrix(d1, d2), "hamming_matrix_kernel",
-                            launches=50 if n * m <= 2 ** 26 else 10)
+        del ref
+        a_pm1, b_pm1 = kernels.unpack_pm1(d1), kernels.unpack_pm1(d2)
+        lib = lambda: torch._int_mm(a_pm1, b_pm1.t())
+        require_equal(f"torch._int_mm {n}x{m} as distances",
+                      [kernels.hamming_from_pm1_dot(lib())], [got])
+        del got
+        big = n * m > 2 ** 26
+        reps, launches = (5, 10) if big else (15, 50)
+        kern = lambda: kernels.hamming_matrix(d1, d2)
+        turns = {"kernel": [], "library": []}
+        for _ in range(2):
+            turns["kernel"].append(device_ms(kern, "hamming_matrix_mma_kernel",
+                                             launches=launches))
+            turns["library"].append(all_device_ms(lib, launches))
         matrix_rows.append({
-            "shape": [n, m], "max_abs_err": float(err), "device_ms": ms,
-            "device_ms_from": how,
-            "call_ms": call_ms(lambda: kernels.hamming_matrix(d1, d2), reps=reps),
+            "shape": [n, m], "max_abs_err": float(err),
+            "device_ms": float(np.mean([t[0] for t in turns["kernel"]])),
+            "device_ms_turns": [t[0] for t in turns["kernel"]],
+            "device_ms_from": turns["kernel"][0][1],
+            "call_ms": call_ms(kern, reps=reps),
             "plain_ms": call_ms(lambda: kernels.hamming_matrix_ref(d1, d2), reps=reps),
-            "library_ms": None,
-            **bound(card, 32.0 * (n + m) + 4.0 * n * m, popc=8.0 * n * m)})
+            "library": "torch._int_mm (cuBLASLt int8, +-1 operands)",
+            "library_ms": float(np.mean([t[0] for t in turns["library"]])),
+            "library_ms_turns": [t[0] for t in turns["library"]],
+            "library_ms_from": turns["library"][0][1],
+            "library_call_ms": call_ms(lib, reps=reps),
+            "library_prep_ms": call_ms(lambda: (kernels.unpack_pm1(d1),
+                                                kernels.unpack_pm1(d2)), reps=reps),
+            **bound(card, 32.0 * (n + m) + 4.0 * n * m, hamming_pairs=float(n) * m)})
+        del a_pm1, b_pm1
+        torch.cuda.empty_cache()
     emit("kernel_hamming_matrix", exact=True, shapes=matrix_rows)
     return {"hamming_matrix": dict(matrix_rows[0], shapes=matrix_rows)}
 
@@ -625,8 +695,6 @@ def check_k2_fused(cfg, card: dict, gen) -> dict:
                 ms, how = device_ms(fn, f"best_two_{inner}_kernel",
                                     launches=50 if n * m <= 2 ** 26 else 10)
                 io_bytes = 33.0 * (n + m) + 16.0 * n + 24.0 * m
-                ops = ({"popc": 8.0 * n_valid} if inner == "popc"
-                       else {"mma_int8_ops": 64.0 * n_valid})
                 valid_rows[inner].append({
                     "shape": [n, m], "inputs": kind, "valid_pairs": n_valid,
                     "max_abs_err": 0.0, "device_ms": ms, "device_ms_from": how,
@@ -634,7 +702,7 @@ def check_k2_fused(cfg, card: dict, gen) -> dict:
                     "plain_ms": (call_ms(lambda: kernels.hamming_best_two_valid_ref(
                         d1, v1, d2, v2, row_block=block), reps=3, warmup=1)
                         if kind == "random" else None),
-                    "library_ms": None, **bound(card, io_bytes, **ops)})
+                    "library_ms": None, **bound(card, io_bytes, hamming_pairs=n_valid)})
             if n * m > 2 ** 26:
                 continue                      # no projection match at map x map
             c = case["projection"]
@@ -663,7 +731,7 @@ def check_k2_fused(cfg, card: dict, gen) -> dict:
                                     reps=5),
                 "library_ms": None,
                 # a valid pair: 2 sub, 2 mul, 1 add, 1 compare
-                **bound(card, 49.0 * n + 45.0 * m + 16.0 * n, popc=8.0 * passing,
+                **bound(card, 49.0 * n + 45.0 * m + 16.0 * n, hamming_pairs=passing,
                         fp32_instr=5.0 * n_valid, minmax_instr=n_valid)})
     emit("kernel_hamming_best_two_valid", exact=True, popc=valid_rows["popc"],
          mma=valid_rows["mma"])
@@ -683,7 +751,15 @@ def stereo_case(n: int, m: int, gen, dev, kind: str, width: int, height: int) ->
     fully masked row and column. "tolerance": each left feature sits
     exactly on the row tolerance of its level, one float32 step beyond it,
     or at disparity exactly 0.3, 128 or one step inside, relative to its
-    right feature (integer right positions keep most differences exact)."""
+    right feature (integer right positions keep most differences exact).
+    "reversed_ties" (the row-band search's trap): "ties", and five right
+    columns far apart in index share one descriptor, one image row and one
+    level, so that they reach a row's search out of column order, and
+    every 6th left row copies that descriptor onto that row.
+    "empty_band": "random", and a fifth of the left rows sit on an image
+    row whose band holds no right feature, with rows at the image's first
+    and last row matching right features there, one of them only through
+    float rounding, from one row below the band's exact edge."""
     from multi_orbslam3_tpu_torch.frontend import kernels
     rnd = lambda *shape: torch.rand(shape, generator=gen, device=dev)
     rint = lambda lo, hi, k: torch.randint(lo, hi, (k,), generator=gen, device=dev)
@@ -692,12 +768,20 @@ def stereo_case(n: int, m: int, gen, dev, kind: str, width: int, height: int) ->
     uvR = torch.round(rnd(m, 2) * torch.tensor([width, height], device=dev))
     levelR = rint(0, 8, m).to(torch.int32)
     src = rint(0, m, n)
-    if kind == "ties":
+    if kind in ("ties", "reversed_ties"):
         k = dR[7::7].shape[0]
         dR[7::7] = dR[6:-1:7][:k].clone()
         uvR[7::7] = uvR[6:-1:7][:k].clone()
         vL[min(3, n - 1)] = False
         vR[min(2, m - 1)] = False
+    if kind == "empty_band":
+        uvR[:8, 1] = 0.0
+        uvR[8:16, 1] = float(height - 1)
+        src[:16] = torch.arange(16, device=dev)
+        vR[:16] = True
+        vL[:16] = True
+        empty_row = float(height) * 0.8 + 0.5
+        uvR[(uvR[:, 1] - empty_row).abs() < 12, 1] = 10.0
     levelL = torch.clamp(levelR[src] + rint(-2, 3, n).to(torch.int32), 0, 7)
     tol = kernels.stereo_row_tolerance(levelL, 2.0)
     if kind == "tolerance":
@@ -715,49 +799,92 @@ def stereo_case(n: int, m: int, gen, dev, kind: str, width: int, height: int) ->
         uvL = uvR[src] + torch.stack([rnd(n) * 145.0 - 5.0,
                                       torch.randn(n, generator=gen, device=dev) * 3.0], dim=1)
     dL = torch.where((rnd(n) < 0.6)[:, None], dR[src], dL)
+    if kind == "empty_band":
+        uvL[:16] = uvR[:16] + torch.tensor([20.0, 0.0], device=dev)
+        dL[:16] = dR[:16]
+        levelL[:16] = levelR[:16]
+        tol[:16] = kernels.stereo_row_tolerance(levelL[:16], 2.0)
+        uvL[n // 5:2 * n // 5, 1] = empty_row
+        # fl(tol - vR) rounds to tol: the pair passes from one row below the
+        # band's exact edge
+        uvR[0, 1] = -1e-8
+        uvL[0, 1] = tol[0]
+    if kind == "reversed_ties":
+        dup = torch.tensor([10, m // 3, m // 3 + 1, m // 2, m - 1], device=dev)
+        dR[dup] = dR[10].clone()
+        uvR[dup] = torch.stack([100.0 + torch.arange(5, device=dev, dtype=torch.float32),
+                                torch.full((5,), 200.0, device=dev)], 1)
+        levelR[dup] = 3
+        vR[dup] = True
+        rows = torch.arange(0, n, 6, device=dev)
+        dL[rows] = dR[10]
+        uvL[rows] = torch.tensor([180.0, 200.5], device=dev)
+        levelL[rows] = 3
+        tol[rows] = kernels.stereo_row_tolerance(levelL[rows], 2.0)
+        vL[rows] = True
     return dict(descL=dL, uvL=uvL.contiguous(), validL=vL, levelL=levelL, tol=tol,
-                descR=dR, uvR=uvR, validR=vR, levelR=levelR, max_disparity=128.0)
+                descR=dR, uvR=uvR.contiguous(), validR=vR, levelR=levelR,
+                max_disparity=128.0)
 
 
 def check_k2_stereo(cfg, card: dict, gen) -> dict:
-    """K2's stereo-masked fused match at the stereo frame's shape (features
-    x features): exactness on random, tie and on-the-tolerance cases, then
-    times; the bound counts the pairs that pass the float mask."""
+    """K2's stereo match, the row-band search (csrc/stereo_band.cu), at the
+    stereo frame's shape (features x features): exactness on random, tie,
+    on-the-tolerance, out-of-column-order tie and empty-band cases, then
+    times, and a KITTI-size pair (4,096 features a side, 1241 x 376) for how
+    the time grows. The bound counts the pairs that pass the float mask
+    (their products) and the float tests of the pairs within a row's
+    tolerance (the pairs a row-indexed search has to test)."""
     from multi_orbslam3_tpu_torch.frontend import kernels
     dev = torch.device("cuda")
     n = m = cfg.orb.n_features
+    W, H = cfg.camera.width, cfg.camera.height
     rows = []
-    for kind in ("random", "ties", "tolerance"):
-        c = stereo_case(n, m, gen, dev, kind, cfg.camera.width, cfg.camera.height)
+    cases = [(n, m, W, H, kind) for kind in ("random", "ties", "tolerance", "reversed_ties",
+                                             "empty_band")]
+    cases.append((kernels.STEREO_MAX_M, kernels.STEREO_MAX_M, 1241, 376, "random"))
+    for n_, m_, w_, h_, kind in cases:
+        c = stereo_case(n_, m_, gen, dev, kind, w_, h_)
         fn = lambda: kernels.hamming_best_two_stereo(**c)
         got = fn()
         torch.cuda.synchronize()
-        require_equal(f"K2 stereo {n}x{m} ({kind})", got,
+        require_equal(f"K2 stereo {n_}x{m_} ({kind})", got,
                       kernels.hamming_best_two_stereo_ref(**c))
         matched = int((got[1] < kernels.BIG).sum())
-        if matched == 0 or matched == n:
-            raise AssertionError(f"K2 stereo {n}x{m} ({kind}): {matched} of {n} rows "
+        if matched == 0 or matched == n_:
+            raise AssertionError(f"K2 stereo {n_}x{m_} ({kind}): {matched} of {n_} rows "
                                  "have a pair in their window")
+        if kind == "reversed_ties":
+            tied = torch.arange(0, n_, 6, device=dev)
+            if not ((got[0][tied] == 10).all() and (got[1][tied] == 0).all()
+                    and (got[2][tied] == 0).all()):
+                raise AssertionError("K2 stereo: the tied rows did not take column 10")
+        if kind == "empty_band" and not (got[1][n_ // 5:2 * n_ // 5] == kernels.BIG).all():
+            raise AssertionError("K2 stereo: a row with an empty band found a pair")
         if kind == "ties":
             continue
         # pairs that pass the mask, from the plain arithmetic
         dv = (c["uvL"][:, None, 1] - c["uvR"][None, :, 1]).abs()
         disp = c["uvL"][:, None, 0] - c["uvR"][None, :, 0]
         f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
-        passing = float(((dv <= c["tol"][:, None]) & (disp > f32(0.3)) & (disp < f32(128.0))
-                         & ((c["levelL"][:, None] - c["levelR"][None, :]).abs() <= 1)
-                         & c["validL"][:, None] & c["validR"][None, :]).sum())
-        n_valid = float(c["validL"].sum()) * float(c["validR"].sum())
-        ms, how = device_ms(fn, "best_two_popc_kernel")
+        both = c["validL"][:, None] & c["validR"][None, :]
+        in_band = (dv <= c["tol"][:, None]) & both
+        passing = float((in_band & (disp > f32(0.3)) & (disp < f32(128.0))
+                         & ((c["levelL"][:, None] - c["levelR"][None, :]).abs() <= 1)).sum())
+        band = float(in_band.sum())
+        n_valid = float(both.sum())
+        del dv, disp, both, in_band
+        ms, how = device_ms(fn, "stereo_band_kernel")
         rows.append({
-            "shape": [n, m], "inputs": kind, "valid_pairs": n_valid,
-            "window_pairs": passing, "rows_matched": matched, "max_abs_err": 0.0,
-            "device_ms": ms, "device_ms_from": how, "call_ms": call_ms(fn),
+            "shape": [n_, m_], "image": [w_, h_], "inputs": kind, "valid_pairs": n_valid,
+            "band_pairs": band, "window_pairs": passing, "rows_matched": matched,
+            "max_abs_err": 0.0, "device_ms": ms, "device_ms_from": how,
+            "call_ms": call_ms(fn),
             "plain_ms": call_ms(lambda: kernels.hamming_best_two_stereo_ref(**c), reps=5),
             "library_ms": None,
-            # a valid pair: 2 subtractions and an abs, then 3 compares
-            **bound(card, 49.0 * n + 45.0 * m + 16.0 * n, popc=8.0 * passing,
-                    fp32_instr=3.0 * n_valid, minmax_instr=3.0 * n_valid)})
+            # a pair within the band: 2 subtractions and an abs, then 3 compares
+            **bound(card, 49.0 * n_ + 45.0 * m_ + 16.0 * n_, hamming_pairs=passing,
+                    fp32_instr=3.0 * band, minmax_instr=3.0 * band)})
     emit("kernel_hamming_best_two_stereo", exact=True, shapes=rows)
     return {"hamming_best_two_stereo": dict(rows[0], shapes=rows)}
 
@@ -816,13 +943,11 @@ def check_k2_arena(card: dict, gen, n_agents: int = 2) -> dict:
             torch.cuda.synchronize()
             require_equal(f"K2 valid/{inner} {P}x{P} ({kind})", got, want)
             ms, how = device_ms(fn, f"best_two_{inner}_kernel", launches=5)
-            ops = ({"popc": 8.0 * n_valid} if inner == "popc"
-                   else {"mma_int8_ops": 64.0 * n_valid})
             rows[f"hamming_best_two_valid_{inner}"].append({
                 "shape": [P, P], "inputs": kind, "valid_pairs": n_valid,
                 "max_abs_err": 0.0, "device_ms": ms, "device_ms_from": how,
                 "call_ms": call_ms(fn, reps=3), "plain_ms": plain, "library_ms": None,
-                **bound(card, 33.0 * (P + P) + 16.0 * P + 24.0 * P, **ops)})
+                **bound(card, 33.0 * (P + P) + 16.0 * P + 24.0 * P, hamming_pairs=n_valid)})
         del want, d1, v1, d2, v2
         torch.cuda.empty_cache()
     c_p = match_case(P, n_feat, gen, dev, "random", W, H)["projection"]
@@ -844,7 +969,7 @@ def check_k2_arena(card: dict, gen, n_agents: int = 2) -> dict:
         "device_ms_from": how, "call_ms": call_ms(pfn),
         "plain_ms": call_ms(lambda: kernels.hamming_best_two_projection_ref(**c_p), reps=5),
         "library_ms": None,
-        **bound(card, 49.0 * P + 45.0 * n_feat + 16.0 * P, popc=8.0 * passing,
+        **bound(card, 49.0 * P + 45.0 * n_feat + 16.0 * P, hamming_pairs=passing,
                 fp32_instr=5.0 * n_valid, minmax_instr=n_valid)})
     emit("kernel_hamming_arena_shapes", exact=True, **rows)
     return rows
@@ -2262,7 +2387,8 @@ def main() -> int:
         "shape": [16384, 1024], "inputs": "random words",
         "kernel_ms": bk["hamming_kernel_ms"], "plain_ms": bk["hamming_plain_ms"],
         "equal": bk["hamming_equal"],
-        **bound(card, 32.0 * (16384 + 1024) + 4.0 * 16384 * 1024, popc=8.0 * 16384 * 1024)}}
+        **bound(card, 32.0 * (16384 + 1024) + 4.0 * 16384 * 1024,
+                hamming_pairs=16384.0 * 1024)}}
     entries = []
     for name, k in KERNELS.items():
         variants = []
@@ -2274,10 +2400,13 @@ def main() -> int:
                 "max_abs_err": r["max_abs_err"], "shape": r["shape"],
                 "ms": r["device_ms"], "device_ms": r["device_ms"], "call_ms": r["call_ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "limit": r["limit"], "library_ms": None,
+                "bound_by": r["bound_by"], "limit": r["limit"],
+                "library_ms": r.get("library_ms"),
+                **{k: r[k] for k in ("popc_bound_ms", "library", "library_prep_ms") if k in r},
+                "card": card["smi"],
                 **({"arena_shapes": [{k: a[k] for k in (
                     "shape", "inputs", "device_ms", "call_ms", "plain_ms", "bound_ms",
-                    "bound_by", "limit")} for a in r["arena_shapes"]]}
+                    "bound_by", "limit", "popc_bound_ms")} for a in r["arena_shapes"]]}
                    if "arena_shapes" in r else {}),
                 **({"bench_kernels": bench_rows[vname]} if vname in bench_rows else {})})
         head = next(v for v in variants if v["name"] == k["headline"])

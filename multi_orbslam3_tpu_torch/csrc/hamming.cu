@@ -1,14 +1,16 @@
-// K2: packed 256-bit Hamming distance, as a matrix and as fused matches.
+// K2: packed 256-bit Hamming distance as fused matches, by __popc.
 //
 // Replaces the Pallas TPU kernel
 //   multi_orbslam3_tpu/frontend/pallas_kernels.py::hamming_matrix
-//   (kernel body _hamming_kernel).
+//   (kernel body _hamming_kernel) for the matchers, which reduce its
+//   matrix to three numbers a row.
 // dist[i, j] = sum over 8 words of popcount(d1[i, w] ^ d2[j, w]); the words
 // are the int32 bit patterns of the JAX package's uint32 descriptor words.
 // Every result equals the plain version exactly (integers and comparisons).
+// The matrix itself is written by hamming_mma.cu, the stereo match is the
+// row-band search of stereo_band.cu.
 //
-// Four entry points:
-//   mo3_hamming_matrix               writes the (n, m) int32 matrix;
+// Two entry points:
 //   mo3_hamming_best_two_valid       masks by row and column validity and
 //                                    keeps, per row, the first best column,
 //                                    the best and the second-best distance,
@@ -17,34 +19,21 @@
 //                                    around a projected position and a
 //                                    pyramid-level window, computed in the
 //                                    kernel from per-row and per-column
-//                                    vectors, and keeps the row results;
-//   mo3_hamming_best_two_stereo      masks a left (rows) against a right
-//                                    (columns) rectified feature set by
-//                                    validity, epipolar row, disparity range
-//                                    and pyramid level, and keeps the row
-//                                    results.
-// No caller of the port wants the matrix itself: the matchers reduce it to
-// three numbers a row, so the fused entry points never write n x m.
+//                                    vectors, and keeps the row results.
+// Neither writes n x m.
 //
-// What bounds them on an H100. The matrix writer has two limits: the
-// output (64 MiB at 16,384 x 1,024, 1 GiB at 16,384^2, against 3.35 TB/s)
-// and the rate of __popc, 16 results per clock per SM, for n*m*8
-// popcounts; at 16,384^2 the popcounts take longer than the writes. With
-// the write gone the fused kernels are bound by the popcount rate alone
-// when every pair is unmasked, and by far less when the masks are sparse:
-// an invalid row or column costs nothing, and the projection variant tests
-// radius and level first (a handful of float operations a pair) and counts
-// bits only for the pairs that pass. hamming_mma.cu holds the same match
-// with the 1-bit tensor-core product in place of __popc.
+// What bounds them on an H100. The least time is the larger of the inputs'
+// bytes over 3.35 TB/s and the unmasked pairs' products at the int8 tensor
+// rate (the same distances come from +-1 int8 vectors: 2 x 256 operations
+// a pair). This __popc form is held to 16 popcounts a clock an SM, 8 a
+// pair, far below that rate when every pair is unmasked; it is the default
+// because the callers' masks are sparse: an invalid row or column costs
+// nothing, and the projection variant tests radius and level first (a
+// handful of float operations a pair) and counts bits only for the pairs
+// that pass. hamming_mma.cu holds the same validity match with the 1-bit
+// tensor-core product in place of __popc.
 //
-// Design of the matrix writer: each block owns a 64 x 64 output tile. The
-// tile's 64 d1 rows (2 KB) are staged in shared memory and read as
-// warp-wide broadcasts; each thread keeps one d2 row (its column) in
-// registers and walks 16 rows of the tile, so consecutive threads write
-// consecutive columns and every store of a warp is one 128-byte
-// transaction.
-//
-// Design of the fused kernels: each block owns FT_ROWS rows, staged in
+// Design: each block owns FT_ROWS rows, staged in
 // shared memory (words, validity, and for the projection variant position,
 // squared radius and level) and read as broadcasts, and walks ALL m
 // columns, FT_THREADS at a time, one column a thread, held in registers
@@ -65,9 +54,7 @@
 // The radius test repeats the plain version's float32 arithmetic,
 // (dx*dx) + (dy*dy) <= r*r with each product and the sum rounded on its
 // own: __fmul_rn / __fadd_rn keep nvcc from contracting them into an FMA,
-// which would flip pairs within one ulp of the radius. The stereo test only
-// subtracts and compares: |vL - vR| <= tol with the per-row tolerance handed
-// in (no pow here), and min < uL - uR < max.
+// which would flip pairs within one ulp of the radius.
 //
 // Nothing is allocated here; the wrappers own outputs and scratch.
 
@@ -78,58 +65,13 @@ namespace {
 
 using namespace mo3;
 
-constexpr int TILE_N = 64;
-constexpr int TILE_M = 64;
-constexpr int BLOCK_Y = 4;
-
-__global__ void hamming_matrix_kernel(const int* __restrict__ d1,
-                                      const int* __restrict__ d2,
-                                      int* __restrict__ out, int n, int m) {
-  __shared__ unsigned int s_a[TILE_N][WORDS];
-
-  const int row0 = blockIdx.y * TILE_N;
-  const int col = blockIdx.x * TILE_M + threadIdx.x;
-  const int tid = threadIdx.y * TILE_M + threadIdx.x;
-
-  for (int i = tid; i < TILE_N * WORDS; i += TILE_M * BLOCK_Y) {
-    const int r = i / WORDS;
-    const int wd = i % WORDS;
-    s_a[r][wd] = (row0 + r < n)
-                     ? static_cast<unsigned int>(d1[(size_t)(row0 + r) * WORDS + wd])
-                     : 0u;
-  }
-  unsigned int b[WORDS];
-#pragma unroll
-  for (int wd = 0; wd < WORDS; ++wd)
-    b[wd] = (col < m) ? static_cast<unsigned int>(d2[(size_t)col * WORDS + wd]) : 0u;
-  __syncthreads();
-
-  if (col >= m) return;
-  for (int r = threadIdx.y; r < TILE_N; r += BLOCK_Y) {
-    const int row = row0 + r;
-    if (row >= n) break;
-    int acc = 0;
-#pragma unroll
-    for (int wd = 0; wd < WORDS; ++wd) acc += __popc(s_a[r][wd] ^ b[wd]);
-    out[(size_t)row * m + col] = acc;
-  }
-}
-
 constexpr int FT_ROWS = 16;
 constexpr int FT_THREADS = 256;
 constexpr int FT_WARPS = FT_THREADS / 32;
 
-__device__ __forceinline__ int hamming256(const uint4& alo, const uint4& ahi,
-                                          const uint4& blo, const uint4& bhi) {
-  return __popc(alo.x ^ blo.x) + __popc(alo.y ^ blo.y) + __popc(alo.z ^ blo.z) +
-         __popc(alo.w ^ blo.w) + __popc(ahi.x ^ bhi.x) + __popc(ahi.y ^ bhi.y) +
-         __popc(ahi.z ^ bhi.z) + __popc(ahi.w ^ bhi.w);
-}
-
 // The mask a fused kernel applies besides validity.
 constexpr int MASK_VALID = 0;    // none; also keeps the column argmin
 constexpr int MASK_PROJ = 1;     // radius around a projection + level window
-constexpr int MASK_STEREO = 2;   // epipolar row + disparity range + level window
 
 // One column of d2 as a thread holds it, with its position and level.
 struct Column {
@@ -159,7 +101,7 @@ __global__ void __launch_bounds__(FT_THREADS, MASK != MASK_VALID ? 2 : 3) best_t
   __shared__ uint4 s_lo[FT_ROWS];
   __shared__ uint4 s_hi[FT_ROWS];
   __shared__ int s_valid[FT_ROWS];
-  // u, v, radius^2 (stereo: the row tolerance), level (as bits)
+  // u, v, radius^2, level (as bits)
   __shared__ float4 s_proj[FT_ROWS];
   __shared__ int s_red[FT_ROWS][FT_WARPS][3];
 
@@ -179,7 +121,7 @@ __global__ void __launch_bounds__(FT_THREADS, MASK != MASK_VALID ? 2 : 3) best_t
       if (MASK != MASK_VALID) {
         const float r = a.radius ? a.radius[row] : a.radius_scalar;
         s_proj[tid] = make_float4(a.uv1[2 * (size_t)row], a.uv1[2 * (size_t)row + 1],
-                                  MASK == MASK_PROJ ? __fmul_rn(r, r) : r,
+                                  __fmul_rn(r, r),
                                   __int_as_float(a.lev1[row]));
       }
     }
@@ -224,13 +166,6 @@ __global__ void __launch_bounds__(FT_THREADS, MASK != MASK_VALID ? 2 : 3) best_t
           const float dy = __fsub_rn(p.y, cur.v);
           const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
           if (!(d2 <= p.z) || abs(cur.lev - __float_as_int(p.w)) > a.level_slack) continue;
-        }
-        if (MASK == MASK_STEREO) {
-          const float4 p = s_proj[r];
-          const float dv = fabsf(__fsub_rn(p.y, cur.v));
-          const float disp = __fsub_rn(p.x, cur.u);
-          if (!(dv <= p.z) || !(disp > a.disp_min) || !(disp < a.disp_max) ||
-              abs(cur.lev - __float_as_int(p.w)) > a.level_slack) continue;
         }
         const int d = hamming256(s_lo[r], s_hi[r], cur.lo, cur.hi);
         stat_update(best[r], idx[r], second[r], d, j);
@@ -281,15 +216,6 @@ int launch_best_two_popc(const MatchArgs& a, void* stream) {
 
 }  // namespace
 
-extern "C" int mo3_hamming_matrix(const int* d1, const int* d2, int* out,
-                                  int n, int m, void* stream) {
-  const dim3 block(TILE_M, BLOCK_Y);
-  const dim3 grid((m + TILE_M - 1) / TILE_M, (n + TILE_N - 1) / TILE_N);
-  hamming_matrix_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      d1, d2, out, n, m);
-  return static_cast<int>(cudaGetLastError());
-}
-
 extern "C" int mo3_hamming_best_two_valid(
     const int* d1, const unsigned char* valid1, int n, const int* d2,
     const unsigned char* valid2, int m, long long* idx, int* best, int* second,
@@ -314,20 +240,4 @@ extern "C" int mo3_hamming_best_two_projection(
   a.uv2 = uv2; a.lev2 = lev2; a.level_slack = level_slack;
   a.idx = idx; a.best = best; a.second = second;
   return launch_best_two_popc<MASK_PROJ>(a, stream);
-}
-
-extern "C" int mo3_hamming_best_two_stereo(
-    const int* d1, const float* uv1, const unsigned char* valid1,
-    const float* row_tol, const int* lev1, int n, const int* d2,
-    const float* uv2, const unsigned char* valid2, const int* lev2, int m,
-    float disp_min, float disp_max, int level_slack, long long* idx, int* best,
-    int* second, void* stream) {
-  MatchArgs a = {};
-  a.d1 = d1; a.valid1 = valid1; a.n = n;
-  a.d2 = d2; a.valid2 = valid2; a.m = m;
-  a.uv1 = uv1; a.radius = row_tol; a.lev1 = lev1;
-  a.uv2 = uv2; a.lev2 = lev2; a.level_slack = level_slack;
-  a.disp_min = disp_min; a.disp_max = disp_max;
-  a.idx = idx; a.best = best; a.second = second;
-  return launch_best_two_popc<MASK_STEREO>(a, stream);
 }

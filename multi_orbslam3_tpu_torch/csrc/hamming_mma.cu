@@ -1,22 +1,46 @@
-// K2, tensor-core inner product: hamming_best_two_valid with the 1-bit MMA
-// in place of __popc.
+// K2 on the tensor cores: the Hamming matrix writer, and
+// hamming_best_two_valid with the 1-bit MMA in place of __popc.
 //
-// Same function and same exact results as mo3_hamming_best_two_valid in
-// hamming.cu (which replaces the Pallas TPU kernel
-// multi_orbslam3_tpu/frontend/pallas_kernels.py::hamming_matrix for the
-// matchers). The Hamming distance of two 256-bit descriptors is
+// The matrix replaces the Pallas TPU kernel
+// multi_orbslam3_tpu/frontend/pallas_kernels.py::hamming_matrix (kernel body
+// _hamming_kernel): (n, 8) x (m, 8) int32 descriptor words -> the (n, m)
+// int32 matrix of Hamming distances. The fused match has the same function
+// and the same exact results as mo3_hamming_best_two_valid in hamming.cu.
+// The Hamming distance of two 256-bit descriptors is
 //   popc(a) + popc(b) - 2 * popc(a & b),
 // and popc(a & b) over 256 bits is exactly one k-step of
 //   mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc:
 // one descriptor is one K = 256 fragment row. (The .xor.popc form, which
 // would give the distance at once, is not offered for sm_90.)
 //
-// What bounds it on an H100: with the N x M write gone, the __popc kernel
-// is bound by the popcount rate (16 a clock an SM, 8 a pair). Here a
-// warp's MMA yields 16 x 8 pairs at once and the CUDA cores are left with
-// the epilogue: one add and a handful of compare/selects a pair.
+// What bounds them on an H100. The matrix: its int32 output, 4 n m bytes
+// at 3.35 TB/s (0.32 ms at 16,384^2); the products are 4-5x below that even
+// at the int8 tensor rate (2 x 256 operations a pair, as +-1 int8 vectors
+// would need). The fused match writes no n x m and is bound by the products
+// when most pairs are valid: a warp's MMA yields 16 x 8 pairs at once and
+// the CUDA cores are left with the epilogue, one add and a handful of
+// compare/selects a pair.
 //
-// Design: a block of TC_WARPS warps owns 16 rows a warp: their A
+// Design of the matrix writer (hamming_matrix_mma_kernel): a persistent
+// grid, as many blocks as fit on the card, walks the 128 x 128 output
+// tiles. A tile's 128 rows and 128 columns (4 KB each) are loaded one tile
+// ahead into registers (one 16-byte half-row a thread, its popcount summed
+// with the neighbour lane's) and staged in shared memory as half-rows, so
+// that a fragment's 8 rows x 4 words are 32 consecutive words. Each of the
+// 8 warps owns 16 rows of the tile: 16 MMAs give its 16 x 128 block of
+// popc(a & b), the epilogue forms pa + pb - 2 c and writes it to the warp's
+// own staging rows in shared memory (row stride 136 words: the 64-bit
+// stores of a half-warp hit 32 distinct banks); then the warp writes each
+// of its rows as one 512-byte run of 16-byte streaming stores
+// (st.global.cs.v4: the matrix is not read back here, so it should not
+// stay in L2). Stores are fire-and-forget, so one tile's stores drain
+// while the next tile's loads and MMAs run. The ragged edge is handled in
+// the kernel: rows and columns past n and m are loaded as zeros and never
+// stored; when m is not a multiple of 4 the rows are not 16-byte aligned
+// and every store is a 4-byte one.
+//
+// Design of the fused match (best_two_mma_kernel): a block of TC_WARPS
+// warps owns 16 rows a warp: their A
 // fragment, popcounts and running (best, idx, second) stay in registers.
 // The block walks all m columns in chunks of TC_CHUNK staged in shared
 // memory: one thread a column loads the 8 words (16-byte loads) and stores
@@ -46,16 +70,6 @@ constexpr int TC_CHUNK = TC_THREADS;           // one column a thread
 constexpr int INVALID = 1 << 20;
 constexpr int NO_KEY = BIG << 8;
 constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ void mma_and_popc(int (&c)[4], const unsigned (&a)[4],
-                                             unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
-      : "=r"(c[0]), "=r"(c[1]), "=r"(c[2]), "=r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "r"(0), "r"(0), "r"(0), "r"(0));
-}
 
 struct Column {
   uint4 lo, hi;
@@ -184,6 +198,122 @@ __global__ void __launch_bounds__(TC_THREADS) best_two_mma_kernel(MatchArgs p) {
   }
 }
 
+// ---------------------------------------------------------------------
+// The matrix writer
+// ---------------------------------------------------------------------
+
+constexpr int MX_TILE = 128;                     // rows and columns of a tile
+constexpr int MX_WARPS = MX_TILE / 16;           // 16 rows a warp
+constexpr int MX_THREADS = MX_WARPS * 32;        // one half-row of A and of B a thread
+constexpr int MX_STRIDE = MX_TILE + 8;           // staging row stride, in words
+constexpr int MX_MAX_DEVICES = 64;
+// dynamic shared memory: A and B as half-rows with their popcounts, then
+// the warps' staging rows
+constexpr int MX_SMEM = 2 * MX_TILE * (2 * 16 + 4) + MX_WARPS * 16 * MX_STRIDE * 4;
+
+// Half-row `half` (words 4 half .. 4 half + 3) of row r of a descriptor
+// set, or zeros past its end.
+__device__ __forceinline__ uint4 load_half_row(const int* d, int rows, int r, int half) {
+  if (r >= rows) return make_uint4(0u, 0u, 0u, 0u);
+  return __ldg(reinterpret_cast<const uint4*>(d + (size_t)r * WORDS) + half);
+}
+
+__device__ __forceinline__ void stage_half_row(uint4* lo, uint4* hi, int* pc, int r,
+                                               int half, const uint4& v) {
+  (half ? hi : lo)[r] = v;
+  int c = __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
+  c += __shfl_xor_sync(FULL, c, 1);          // the other half of the row
+  if (half == 0) pc[r] = c;
+}
+
+__global__ void __launch_bounds__(MX_THREADS) hamming_matrix_mma_kernel(
+    const int* __restrict__ d1, const int* __restrict__ d2, int* __restrict__ out,
+    int n, int m) {
+  extern __shared__ __align__(16) unsigned char mx_smem[];
+  uint4* s_alo = reinterpret_cast<uint4*>(mx_smem);   // words 0-3 of the tile's rows
+  uint4* s_ahi = s_alo + MX_TILE;                      // words 4-7
+  uint4* s_blo = s_ahi + MX_TILE;                      // the same of its columns
+  uint4* s_bhi = s_blo + MX_TILE;
+  int* s_pa = reinterpret_cast<int*>(s_bhi + MX_TILE);  // popcounts
+  int* s_pb = s_pa + MX_TILE;
+  int* s_stage = s_pb + MX_TILE;                       // [MX_WARPS][16][MX_STRIDE]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int my_r = tid >> 1, my_half = tid & 1;  // the half-row this thread loads
+  const int tiles_m = (m + MX_TILE - 1) / MX_TILE;
+  const int tiles = ((n + MX_TILE - 1) / MX_TILE) * tiles_m;
+  const bool vec = (m & 3) == 0;                 // rows are 16-byte aligned
+  int* stage = s_stage + warp * 16 * MX_STRIDE;
+  const unsigned* a_lo = reinterpret_cast<const unsigned*>(s_alo);
+  const unsigned* a_hi = reinterpret_cast<const unsigned*>(s_ahi);
+  const unsigned* b_lo = reinterpret_cast<const unsigned*>(s_blo);
+  const unsigned* b_hi = reinterpret_cast<const unsigned*>(s_bhi);
+
+  int tile = blockIdx.x;
+  uint4 next_a = make_uint4(0u, 0u, 0u, 0u), next_b = next_a;
+  if (tile < tiles) {
+    next_a = load_half_row(d1, n, (tile / tiles_m) * MX_TILE + my_r, my_half);
+    next_b = load_half_row(d2, m, (tile % tiles_m) * MX_TILE + my_r, my_half);
+  }
+  for (; tile < tiles; tile += gridDim.x) {
+    const int row0 = (tile / tiles_m) * MX_TILE;
+    const int col0 = (tile % tiles_m) * MX_TILE;
+    __syncthreads();                             // the last tile's fragments are read
+    stage_half_row(s_alo, s_ahi, s_pa, my_r, my_half, next_a);
+    stage_half_row(s_blo, s_bhi, s_pb, my_r, my_half, next_b);
+    __syncthreads();                             // the tile is staged
+    const int after = tile + gridDim.x;
+    if (after < tiles) {                         // lands during this tile's work
+      next_a = load_half_row(d1, n, (after / tiles_m) * MX_TILE + my_r, my_half);
+      next_b = load_half_row(d2, m, (after % tiles_m) * MX_TILE + my_r, my_half);
+    }
+
+    // 16 MMAs: this warp's 16 rows against the tile's 128 columns
+    const int ra = warp * 16 + g;
+    unsigned a[4];
+    a[0] = a_lo[ra * 4 + tig];
+    a[1] = a_lo[(ra + 8) * 4 + tig];
+    a[2] = a_hi[ra * 4 + tig];
+    a[3] = a_hi[(ra + 8) * 4 + tig];
+    const int pa0 = s_pa[ra], pa1 = s_pa[ra + 8];
+#pragma unroll 4
+    for (int t = 0; t < MX_TILE / 8; ++t) {
+      const unsigned b0 = b_lo[(8 * t + g) * 4 + tig];
+      const unsigned b1 = b_hi[(8 * t + g) * 4 + tig];
+      const int2 pb = *reinterpret_cast<const int2*>(s_pb + 8 * t + 2 * tig);
+      int c[4];
+      mma_and_popc(c, a, b0, b1);
+      const int col = 8 * t + 2 * tig;
+      *reinterpret_cast<int2*>(stage + g * MX_STRIDE + col) =
+          make_int2(pa0 + pb.x - 2 * c[0], pa0 + pb.y - 2 * c[1]);
+      *reinterpret_cast<int2*>(stage + (g + 8) * MX_STRIDE + col) =
+          make_int2(pa1 + pb.x - 2 * c[2], pa1 + pb.y - 2 * c[3]);
+    }
+    __syncwarp();
+
+    // the warp's 16 rows, each one run of streaming stores
+    const int cols = min(MX_TILE, m - col0);
+    for (int r = 0; r < 16; ++r) {
+      const int row = row0 + warp * 16 + r;
+      if (row >= n) break;
+      int* dst = out + (size_t)row * m + col0;
+      const int* src = stage + r * MX_STRIDE;
+      if (vec) {
+        if (4 * lane < cols)
+          __stcs(reinterpret_cast<int4*>(dst) + lane,
+                 *reinterpret_cast<const int4*>(src + 4 * lane));
+      } else {
+        for (int c = lane; c < cols; c += 32) __stcs(dst + c, src[c]);
+      }
+    }
+    __syncwarp();                                // staging rows free for the next tile
+  }
+}
+
+int matrix_grid_cap[MX_MAX_DEVICES] = {0};
+
 }  // namespace
 
 extern "C" int mo3_hamming_best_two_valid_mma(
@@ -196,5 +326,32 @@ extern "C" int mo3_hamming_best_two_valid_mma(
   a.idx = idx; a.best = best; a.second = second; a.col_key = col_key;
   const int grid = (n + TC_BLOCK_ROWS - 1) / TC_BLOCK_ROWS;
   best_two_mma_kernel<<<grid, TC_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The persistent grid: as many blocks as fit on this device at once, the
+// dynamic shared memory allowed once per device.
+extern "C" int mo3_hamming_matrix(const int* d1, const int* d2, int* out, int n, int m,
+                                  void* stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= MX_MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (matrix_grid_cap[dev] == 0) {
+    err = cudaFuncSetAttribute(hamming_matrix_mma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, MX_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, hamming_matrix_mma_kernel,
+                                                        MX_THREADS, MX_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    matrix_grid_cap[dev] = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const long long tiles = (long long)((n + MX_TILE - 1) / MX_TILE) * ((m + MX_TILE - 1) / MX_TILE);
+  const int grid = static_cast<int>(tiles < matrix_grid_cap[dev] ? tiles : matrix_grid_cap[dev]);
+  hamming_matrix_mma_kernel<<<grid, MX_THREADS, MX_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      d1, d2, out, n, m);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,9 @@
-// Shared pieces of the fused Hamming match kernels (hamming.cu: the
-// __popc inner product; hamming_mma.cu: the 1-bit tensor-core inner
-// product): the argument block, the running best/second statistics of a
-// row and their merge, and the column-argmin key.
+// Shared pieces of the Hamming kernels (hamming.cu: the __popc inner
+// product; hamming_mma.cu: the 1-bit tensor-core inner product and the
+// matrix writer; stereo_band.cu: the stereo row-band search): the argument
+// block, the 256-bit distance by __popc, the 1-bit MMA, the running
+// best/second statistics of a row and their merge, and the column-argmin
+// key.
 //
 // Semantics (frontend/kernels.py, hamming_best_two_*_ref): a masked pair
 // counts as BIG; idx is the first column with the row's minimum; second is
@@ -49,11 +51,47 @@ struct MatchArgs {
   unsigned long long* col_key;   // (m,)
 };
 
+__device__ __forceinline__ int hamming256(const uint4& alo, const uint4& ahi,
+                                          const uint4& blo, const uint4& bhi) {
+  return __popc(alo.x ^ blo.x) + __popc(alo.y ^ blo.y) + __popc(alo.z ^ blo.z) +
+         __popc(alo.w ^ blo.w) + __popc(ahi.x ^ bhi.x) + __popc(ahi.y ^ bhi.y) +
+         __popc(ahi.z ^ bhi.z) + __popc(ahi.w ^ bhi.w);
+}
+
+// popc(a & b) of a 16 x 256-bit A tile (row-major) and an 8 x 256-bit B
+// tile (one descriptor a column), one k-step of the 1-bit tensor-core MMA.
+// Fragments (lane = 4 g + tig): a[h] and a[2 + h] are words tig and 4 + tig
+// of row 8 h + g; b0, b1 words tig and 4 + tig of column g; c[2 h] and
+// c[2 h + 1] come out for row 8 h + g, columns 2 tig and 2 tig + 1.
+__device__ __forceinline__ void mma_and_popc(int (&c)[4], const unsigned (&a)[4],
+                                             unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=r"(c[0]), "=r"(c[1]), "=r"(c[2]), "=r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "r"(0), "r"(0), "r"(0), "r"(0));
+}
+
 // One more column j (visited in ascending order by each thread) with
 // distance d.
 __device__ __forceinline__ void stat_update(int& best, int& idx, int& second,
                                             int d, int j) {
   if (d < best) {
+    second = best;
+    best = d;
+    idx = j;
+  } else {
+    second = min(second, d);
+  }
+}
+
+// One more column j with distance d, the columns arriving in any order:
+// the lower distance wins, then the lower column, as in stat_merge. Two
+// columns that tie for best still leave second == best.
+__device__ __forceinline__ void stat_update_any_order(int& best, int& idx, int& second,
+                                                      int d, int j) {
+  if (d < best || (d == best && j < idx)) {
     second = best;
     best = d;
     idx = j;

@@ -5,17 +5,20 @@
   of a pyramid in one launch (``csrc/fast_nms.cu``); ``fast_score_nms`` is
   the same call with one level.
 - K2 ``hamming_matrix``: (N, 8) x (M, 8) packed descriptor words ->
-  (N, M) int32 Hamming distances (``csrc/hamming.cu``), and its two fused
-  forms, which mask and reduce in the kernel and never write N x M:
+  (N, M) int32 Hamming distances, written tile by tile from the 1-bit
+  tensor-core MMA by a persistent grid (``csrc/hamming_mma.cu``), and its
+  fused forms, which mask and reduce in the kernel and never write N x M:
   ``hamming_best_two_valid`` (row and column validity; per row the first
   best column, best and second-best distance, per column the first best
   row) and ``hamming_best_two_projection`` (validity, a per-row radius
   around a projected position and a pyramid-level window; the row
-  results) and ``hamming_best_two_stereo`` (validity, epipolar row,
-  disparity range and pyramid level between a left and a right feature
-  set; the row results). ``hamming_best_two_valid`` has two inner products:
-  ``__popc`` (``csrc/hamming.cu``) and the 1-bit tensor-core MMA
-  (``csrc/hamming_mma.cu``).
+  results), both walking all columns (``csrc/hamming.cu``), and
+  ``hamming_best_two_stereo`` (validity, epipolar row, disparity range and
+  pyramid level between a left and a right feature set; the row results),
+  a row-band search over a per-row index of the right set built in shared
+  memory (``csrc/stereo_band.cu``). ``hamming_best_two_valid`` has two
+  inner products: ``__popc`` (``csrc/hamming.cu``) and the 1-bit
+  tensor-core MMA (``csrc/hamming_mma.cu``).
 
 Dispatch is by the tensor's device only: a CPU tensor takes the plain
 PyTorch version, a CUDA tensor launches the kernel or raises. There is no
@@ -52,12 +55,15 @@ from multi_orbslam3_tpu_torch.frontend import fast
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fast_nms.cu", "hamming.cu", "hamming_mma.cu")
+SOURCES = ("fast_nms.cu", "hamming.cu", "hamming_mma.cu", "stereo_band.cu")
 HEADERS = ("match_core.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BIG = 10_000          # distance of a masked pair (csrc/match_core.cuh)
 MAX_LEVELS = 16       # capacity of K1's level table (csrc/fast_nms.cu)
+STEREO_MAX_M = 4096   # right features the stereo match holds (csrc/stereo_band.cu)
+STEREO_MAX_BUCKETS = 2048   # image rows its index spans (the rest: overflow)
+STEREO_V_LIMIT = 2.0 ** 20  # |v| at or above this: the overflow bucket
 
 _lib_handle = None
 _lib_lock = threading.Lock()
@@ -123,15 +129,15 @@ def _lib():
     with _lib_lock:
         if _lib_handle is None:
             paths = build()["paths"]
-            fast_so, ham_so, mma_so = (ctypes.CDLL(str(paths[n])) for n in SOURCES)
+            fast_so, ham_so, mma_so, band_so = (ctypes.CDLL(str(paths[n])) for n in SOURCES)
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             fns = types.SimpleNamespace(
                 fast_score_nms_levels=fast_so.mo3_fast_score_nms_levels,
-                hamming_matrix=ham_so.mo3_hamming_matrix,
+                hamming_matrix=mma_so.mo3_hamming_matrix,
                 hamming_best_two_valid_popc=ham_so.mo3_hamming_best_two_valid,
                 hamming_best_two_valid_mma=mma_so.mo3_hamming_best_two_valid_mma,
                 hamming_best_two_projection=ham_so.mo3_hamming_best_two_projection,
-                hamming_best_two_stereo=ham_so.mo3_hamming_best_two_stereo)
+                hamming_best_two_stereo=band_so.mo3_hamming_best_two_stereo)
             fns.fast_score_nms_levels.argtypes = [vp, vp, vp, vp, ci, cf, vp]
             fns.hamming_matrix.argtypes = [vp, vp, vp, ci, ci, vp]
             valid_args = [vp, vp, ci, vp, vp, ci, vp, vp, vp, vp, vp]
@@ -176,7 +182,7 @@ def _all_cpu(*tensors: torch.Tensor) -> bool:
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
     """The kernels read descriptor rows as 16-byte words and feature
-    positions as 8-byte pairs."""
+    positions as 8-byte pairs; the matrix kernel writes 16-byte words."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -258,7 +264,8 @@ def hamming_matrix_ref(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
 
 def hamming_matrix(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     """(N, 8) x (M, 8) int32 descriptor words -> (N, M) int32 Hamming
-    distances. CPU: plain version; CUDA: kernel K2."""
+    distances. CPU: plain version; CUDA: kernel K2's matrix writer
+    (popc(a) + popc(b) - 2 popc(a & b), the last from the 1-bit MMA)."""
     if _all_cpu(d1, d2):
         return hamming_matrix_ref(d1, d2)
     _check_cuda("hamming_matrix", d1, torch.int32, (None, 8))
@@ -267,8 +274,26 @@ def hamming_matrix(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, m), dtype=torch.int32, device=d1.device)
     if n == 0 or m == 0:
         return out
+    d1, d2 = _aligned16(d1), _aligned16(d2)
     _launch("hamming_matrix", d1.data_ptr(), d2.data_ptr(), out.data_ptr(), n, m)
     return out
+
+
+def unpack_pm1(words: torch.Tensor) -> torch.Tensor:
+    """(N, 8) int32 descriptor words -> (N, 256) int8 of +-1: bit b of word
+    w (b = 0 the least significant, b = 31 the sign bit of the int32) is
+    element 32 w + b, +1 where the bit is set and -1 where it is clear. For
+    two such rows the dot product is 256 - 2 x their Hamming distance, which
+    is how an int8 matrix product (cuBLASLt's, ``torch._int_mm``) computes
+    the matrix; the port itself does not take that route."""
+    bits = (words[:, :, None] >> torch.arange(32, dtype=torch.int32,
+                                              device=words.device)) & 1
+    return (2 * bits - 1).to(torch.int8).reshape(words.shape[0], 256)
+
+
+def hamming_from_pm1_dot(dot: torch.Tensor) -> torch.Tensor:
+    """The Hamming distances from the int32 dot products of +-1 rows."""
+    return (256 - dot) // 2
 
 
 def best_two(dist: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -463,6 +488,89 @@ def hamming_best_two_stereo_ref(descL, uvL, validL, levelL, tol, descR, uvR,
     return best_two(torch.where(mask, hamming_matrix_ref(descL, descR), BIG))
 
 
+def stereo_band_candidates(uvL, validL, tol, uvR, validR) -> List[np.ndarray]:
+    """The right columns that csrc/stereo_band.cu visits for each left row,
+    in its order: valid columns keyed by floor(v) (|v| < 2^20; others, NaN
+    and inf included, in an overflow bucket), the buckets spanning the
+    smallest to the largest key, at most STEREO_MAX_BUCKETS (keys beyond go
+    to the overflow bucket); a row visits the overflow bucket, then the
+    buckets of keys floor(vL - tol) - 1 .. floor(vL + tol) + 1 (every bucket
+    when that band is not finite or not below 2^20). Within a bucket the
+    kernel's atomics leave any order: here the columns come in descending
+    order, the one that a first-seen tie rule would get wrong. An invalid
+    left row visits nothing."""
+    vL = uvL[:, 1].cpu().numpy()
+    tolv = tol.cpu().numpy()
+    vR = uvR[:, 1].cpu().numpy()
+    vlim = np.float32(STEREO_V_LIMIT)
+    cols = np.flatnonzero(validR.cpu().numpy())
+    with np.errstate(invalid="ignore"):
+        inrange = np.abs(vR[cols]) < vlim
+    keys = np.floor(vR[cols][inrange]).astype(np.int64)
+    base = int(keys.min()) if keys.size else 0
+    nb = min(int(keys.max()) - base + 1, STEREO_MAX_BUCKETS) if keys.size else 0
+    bucket = np.zeros(cols.size, dtype=np.int64)
+    bucket[inrange] = np.where(keys - base < nb, 1 + keys - base, 0)
+    order = np.lexsort((-cols, bucket))            # by bucket, descending columns
+    sorted_cols, sorted_b = cols[order], bucket[order]
+    start = np.searchsorted(sorted_b, np.arange(nb + 2))   # bucket b: [start[b], start[b+1])
+    out = []
+    for i, valid in enumerate(validL.cpu().numpy()):
+        if not valid:
+            out.append(np.zeros(0, dtype=np.int64))
+            continue
+        with np.errstate(invalid="ignore", over="ignore"):
+            lo_v, hi_v = vL[i] - tolv[i], vL[i] + tolv[i]   # float32 arithmetic
+            banded = abs(lo_v) < vlim and abs(hi_v) < vlim
+        lo, hi = 1, nb
+        if nb == 0:
+            hi = 0
+        elif banded:
+            lo = max(1, int(np.floor(lo_v)) - base)
+            hi = min(nb, int(np.floor(hi_v)) - base + 2)
+        seg = sorted_cols[start[lo]:start[hi + 1]] if hi >= lo else sorted_cols[:0]
+        out.append(np.concatenate([sorted_cols[:start[1]], seg]))
+    return out
+
+
+def hamming_best_two_stereo_banded_ref(descL, uvL, validL, levelL, tol, descR, uvR,
+                                       validR, levelR, max_disparity: float):
+    """CPU model of csrc/stereo_band.cu: each left row visits the columns of
+    ``stereo_band_candidates`` in that order, applies the exact float32
+    tests of the plain version and keeps (best, idx, second) ordered by
+    (distance, column), as the kernel's lanes do. Equal to
+    hamming_best_two_stereo_ref wherever the band holds every unmasked
+    pair, which is what the kernel's spare row on each side ensures."""
+    f32 = np.float32
+    uL, vL = (uvL[:, k].cpu().numpy() for k in (0, 1))
+    uR, vR = (uvR[:, k].cpu().numpy() for k in (0, 1))
+    lvL, lvR = levelL.cpu().numpy(), levelR.cpu().numpy()
+    tolv = tol.cpu().numpy()
+    dL = descL.cpu().numpy().view(np.uint32)
+    dR = descR.cpu().numpy().view(np.uint32)
+    n = descL.shape[0]
+    idx = np.zeros(n, dtype=np.int64)
+    best = np.full(n, BIG, dtype=np.int32)
+    second = np.full(n, BIG, dtype=np.int32)
+    cands = stereo_band_candidates(uvL, validL, tol, uvR, validR)
+    for i, c in enumerate(cands):
+        with np.errstate(invalid="ignore"):
+            ok = ((np.abs(vL[i] - vR[c]) <= tolv[i]) & (uL[i] - uR[c] > f32(STEREO_MIN_DISPARITY))
+                  & (uL[i] - uR[c] < f32(max_disparity))
+                  & (np.abs(lvR[c] - lvL[i]) <= STEREO_LEVEL_SLACK))
+        b, j0, s = BIG, 0, BIG
+        for j in c[ok]:
+            d = int(np.bitwise_count(dL[i] ^ dR[j]).sum())
+            if d < b or (d == b and j < j0):
+                b, j0, s = d, int(j), b
+            else:
+                s = min(s, d)
+        idx[i], best[i], second[i] = j0, b, s
+    dev = descL.device
+    return (torch.from_numpy(idx).to(dev), torch.from_numpy(best).to(dev),
+            torch.from_numpy(second).to(dev))
+
+
 def hamming_best_two_stereo(descL: torch.Tensor, uvL: torch.Tensor,
                             validL: torch.Tensor, levelL: torch.Tensor,
                             tol: torch.Tensor, descR: torch.Tensor,
@@ -475,8 +583,9 @@ def hamming_best_two_stereo(descL: torch.Tensor, uvL: torch.Tensor,
     |levelL - levelR| <= 1. Returns per row (idx int64, best int32, second
     int32) as hamming_best_two_valid does.
 
-    CPU: plain version; CUDA: the fused kernel, which computes the mask
-    from the per-row and per-column vectors and writes no N x M."""
+    CPU: plain version; CUDA: the row-band search (csrc/stereo_band.cu),
+    which indexes the right set by image row in shared memory and tests
+    only the pairs within a row's band; M is at most STEREO_MAX_M."""
     n, m = descL.shape[0], descR.shape[0]
     if n == 0 or m == 0:
         dev = descL.device
@@ -497,7 +606,11 @@ def hamming_best_two_stereo(descL: torch.Tensor, uvL: torch.Tensor,
     _check_cuda(name, uvR, torch.float32, (m, 2))
     _check_cuda(name, validR, torch.bool, (m,))
     _check_cuda(name, levelR, torch.int32, (m,))
-    descL, descR, uvR = _aligned16(descL), _aligned16(descR), _aligned16(uvR)
+    if m > STEREO_MAX_M:
+        raise ValueError(f"{name}: {m} right features, the kernel's index holds "
+                         f"{STEREO_MAX_M}")
+    descL, descR = _aligned16(descL), _aligned16(descR)
+    uvL, uvR = _aligned16(uvL), _aligned16(uvR)
     dev = descL.device
     idx = torch.empty(n, dtype=torch.int64, device=dev)
     best = torch.empty(n, dtype=torch.int32, device=dev)

@@ -111,6 +111,49 @@ def test_hamming_kernel_equals_plain(dev, n, m):
     assert torch.equal(got, kernels.hamming_matrix_ref(d1, d2))
 
 
+@pytest.mark.parametrize("n,m", [(16384, 1024), (1024, 1024), (129, 4), (300, 260),
+                                 (257, 131), (3, 1029), (128, 128)])
+def test_hamming_matrix_tensor_core_writer_equals_plain(dev, n, m):
+    """The persistent 128 x 128-tile writer: one launch, exact, on full
+    tiles, ragged edges in both directions, m not a multiple of 4 (4-byte
+    stores) and inputs whose rows are not 16-byte aligned (copied)."""
+    rng = np.random.RandomState(3 * n + m)
+    d1, d2 = _words(rng, n, dev), _words(rng, m, dev)
+    k = min(n, d2[::3].shape[0])
+    d2[::3][:k] = d1[:k]                             # distance 0 on some pairs
+    flat = torch.zeros(8 * n + 1, dtype=torch.int32, device=dev)
+    flat[1:].copy_(d1.reshape(-1))
+    shifted = flat[1:].view(n, 8)                    # 4 bytes past an alignment
+    for a in (d1, shifted):
+        before = kernels.launch_counts()["hamming_matrix"]
+        got = kernels.hamming_matrix(a, d2)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["hamming_matrix"] == before + 1
+        assert torch.equal(got, kernels.hamming_matrix_ref(d1, d2))
+
+
+def test_hamming_matrix_on_a_side_stream_and_in_a_cuda_graph(dev):
+    """The matrix writer on a non-default stream, and captured in a CUDA
+    graph and replayed on new descriptors."""
+    rng = np.random.RandomState(21)
+    d1, d2 = _words(rng, 1000, dev), _words(rng, 600, dev)
+    kernels.hamming_matrix(d1, d2)                   # per-device set-up before capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = kernels.hamming_matrix(d1, d2)
+    side.synchronize()
+    assert torch.equal(got, kernels.hamming_matrix_ref(d1, d2))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = kernels.hamming_matrix(d1, d2)
+    d1.copy_(_words(rng, 1000, dev))
+    d2.copy_(_words(rng, 600, dev))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, kernels.hamming_matrix_ref(d1, d2))
+
+
 def _match_case(n, m, dev, ties):
     """Random descriptors with about 25% of rows and columns invalid; with
     `ties`, every 7th column repeats its left neighbour, every 5th row is
@@ -248,6 +291,108 @@ def test_hamming_best_two_stereo_kernel_equals_plain(dev, n, m, kind):
         assert int((got[1] >= kernels.BIG).sum()) > 0
 
 
+def _stereo_band_case(n, m, dev, kind):
+    """_stereo_case's "ties" inputs reshaped for the row-band search.
+    "reversed_ties": five right columns with one descriptor on one image
+    row, in the bucket the highest column first, and rows that copy it;
+    "empty_band": left rows whose band holds no right feature and rows at
+    image rows 0 and 479, one of them a pair that passes the row test only
+    through rounding, from one row below the band's exact edge; "overflow": right features at |v| >= 2^20, inf and
+    NaN, left rows at NaN and far out, and rows spread over more image rows
+    than the index holds."""
+    c = _stereo_case(n, m, dev, "ties")
+    uvL, uvR = c["uvL"].clone(), c["uvR"].clone()
+    if kind == "reversed_ties":
+        dup = torch.tensor([10, 30, 31, 55, m - 1], device=dev)
+        c["descR"][dup] = c["descR"][10].clone()
+        uvR[dup] = torch.stack([100.0 + torch.arange(5, device=dev, dtype=torch.float32),
+                                torch.full((5,), 200.0, device=dev)], 1)
+        c["levelR"][dup] = 3
+        c["validR"][dup] = True
+        rows = torch.arange(0, n, 6, device=dev)
+        c["descL"][rows] = c["descR"][10]
+        uvL[rows] = torch.tensor([180.0, 200.5], device=dev)
+        c["levelL"][rows] = 3
+        c["validL"][rows] = True
+    elif kind == "empty_band":
+        uvR[:8, 1] = 0.0
+        uvR[8:16, 1] = 479.0
+        uvL[:16] = uvR[:16] + torch.tensor([20.0, 0.0], device=dev)
+        c["descL"][:16] = c["descR"][:16]
+        c["levelL"][:16] = c["levelR"][:16]
+        c["validL"][:16] = True
+        c["validR"][:16] = True
+        uvR[(uvR[:, 1] - 400.5).abs() < 12, 1] = 10.0
+        uvL[40:80, 1] = 400.5
+        uvR[0, 1] = -1e-8                            # passes only through rounding,
+        uvL[0, 1] = kernels.stereo_row_tolerance(c["levelL"][:1], 2.0)[0]   # a row below
+    elif kind == "overflow":
+        uvR[:, 1] = uvR[:, 1] * 12.0                 # over 5,000 image rows
+        uvL[:, 1] = uvL[:, 1] * 12.0
+        uvR[:6, 1] = torch.tensor([2.0 ** 20, -2.0 ** 21, float("inf"), -float("inf"),
+                                   float("nan"), 5.0e6], device=dev)
+        c["validR"][:6] = True
+        uvL[:6] = uvR[:6] + torch.tensor([20.0, 0.0], device=dev)
+        uvL[6, 1] = float("nan")
+        uvL[7, 1] = 2.0 ** 21
+        c["descL"][:6] = c["descR"][:6]
+    c["uvL"], c["uvR"] = uvL.contiguous(), uvR.contiguous()
+    c["tol"] = kernels.stereo_row_tolerance(c["levelL"], 2.0)
+    return c
+
+
+@pytest.mark.parametrize("kind", ["reversed_ties", "empty_band", "overflow"])
+@pytest.mark.parametrize("n,m", [(1024, 1024), (300, 77), (2000, 4096)])
+def test_hamming_best_two_stereo_band_search_equals_plain(dev, n, m, kind):
+    """The row-band search on the cases its index makes hard: ties that
+    reach a row out of column order, empty bands and rows at the image's
+    edges, columns in the overflow bucket; up to 4,096 right features (a
+    KITTI-size frame, the kernel's capacity). Exact against the plain
+    version and the banded CPU model."""
+    c = _stereo_band_case(n, m, dev, kind)
+    before = kernels.launch_counts()["hamming_best_two_stereo"]
+    got = kernels.hamming_best_two_stereo(**c, max_disparity=128.0)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["hamming_best_two_stereo"] == before + 1
+    want = kernels.hamming_best_two_stereo_ref(**c, max_disparity=128.0)
+    model = kernels.hamming_best_two_stereo_banded_ref(
+        **{k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in c.items()},
+        max_disparity=128.0)
+    for g, w, b, what in zip(got, want, model, ("idx", "best", "second")):
+        assert g.dtype == w.dtype and torch.equal(g, w), what
+        assert torch.equal(g.cpu(), b), what
+    if kind == "reversed_ties":
+        rows = torch.arange(0, n, 6, device=dev)
+        assert (got[0][rows] == 10).all() and (got[1][rows] == 0).all()
+        assert (got[2][rows] == 0).all()
+    if kind == "empty_band":
+        assert (got[1][:16] == 0).all() and (got[1][40:80] == kernels.BIG).all()
+
+
+def test_stereo_band_search_on_a_side_stream_and_in_a_cuda_graph(dev):
+    """The stereo kernel on a non-default stream, and captured in a CUDA
+    graph and replayed on moved right features."""
+    c = _stereo_band_case(1024, 1024, dev, "reversed_ties")
+    kernels.hamming_best_two_stereo(**c, max_disparity=128.0)   # set-up before capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = kernels.hamming_best_two_stereo(**c, max_disparity=128.0)
+    side.synchronize()
+    want = kernels.hamming_best_two_stereo_ref(**c, max_disparity=128.0)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = kernels.hamming_best_two_stereo(**c, max_disparity=128.0)
+    c["uvR"][:, 1] += 1.25
+    c["uvR"][:, 0] -= 3.0
+    graph.replay()
+    torch.cuda.synchronize()
+    want = kernels.hamming_best_two_stereo_ref(**c, max_disparity=128.0)
+    assert all(torch.equal(g, w) for g, w in zip(captured, want))
+    assert int((captured[1] < kernels.BIG).sum()) > 10
+
+
 def test_stereo_match_on_the_card_equals_the_cpu(dev):
     """frontend.stereo.stereo_match launches the fused kernel for CUDA
     features and gives the CPU's result."""
@@ -302,6 +447,13 @@ def test_kernels_reject_what_they_do_not_take(dev):
         kernels.hamming_best_two_valid(d, v.to(torch.uint8), d, v)
     with pytest.raises(ValueError):
         kernels.hamming_best_two_valid(d, v, d, v, inner="wgmma")
+    c = _stereo_case(64, kernels.STEREO_MAX_M + 1, dev, "random")
+    with pytest.raises(ValueError, match="index holds"):
+        kernels.hamming_best_two_stereo(**c, max_disparity=128.0)
+    c = _stereo_case(64, kernels.STEREO_MAX_M, dev, "random")
+    with pytest.raises(ValueError):
+        kernels.hamming_best_two_stereo(**dict(c, uvR=c["uvR"].double()),
+                                        max_disparity=128.0)
 
 
 def _run_small_sequence(device):
