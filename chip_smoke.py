@@ -31,8 +31,11 @@ failure:
    - K2's stereo match (the row-band search) at 1024x1024 on random and
      tie cases, on pairs exactly on the row tolerance and the disparity
      limits, on ties that reach a row out of column order and on rows
-     whose band is empty or lies at the image's first or last row, and at
-     4096x4096 (its capacity, a KITTI-size 1241x376 frame).
+     whose band is empty or lies at the image's first or last row, at
+     4096x4096 (one launch's capacity, a KITTI-size 1241x376 frame) and
+     past it in column chunks (4608x4608 at 752x480, 8192x8192 at
+     1241x376); K1 also past one launch's 16 levels (the 18 and 24 levels
+     of a stereo pair's 9- and 12-level pyramids, one launch a group).
    Each row has call_ms (median time of one call between CUDA events,
    host launch latency included), device_ms (the kernel's own duration:
    torch.profiler's device self time over 50 launches, or 50 launches
@@ -73,6 +76,14 @@ failure:
    through process_frame_stereo_pipelined. State OK at the end, >= 70
    frames OK, ATE without scale alignment <= 0.02 x span, K1 and the
    stereo match launched once a frame;
+7b. stereo_wide: the first 20 frames of the same sequence at 4,608 ORB
+   features over 9 levels (more right features than one launch of the
+   stereo match takes, 4,096, and for the pair 18 levels, more than one K1
+   launch takes, 16): >= 18 frames OK, ATE without scale alignment <= 0.02
+   x span (the JAX package's run of the cell on a CPU,
+   profiling/jax_stereo_wide_cpu.py, printed beside), K1 and the stereo
+   match launched twice a frame; K1 and the stereo match on frame 0's own
+   inputs against their plain versions;
 8. rgbd: the same sequence's depth images through RGBDSlam, 40 frames:
    state OK, >= 35 OK, ATE <= 0.08 x span;
 9. mono_inertial (this and the next phase under torch's deterministic
@@ -329,12 +340,13 @@ def call_ms(fn, reps: int = 15, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, kernel_name: str, launches: int = 50) -> tuple:
-    """(ms, how): the mean duration of the kernel whose name contains
-    kernel_name over `launches` calls of fn. From torch.profiler's device
-    self time of that kernel; if the profiler shows no device time, from a
-    CUDA graph of the calls replayed between two events (which also counts
-    the wrapper's other small kernels and the gaps between launches)."""
+def device_ms(fn, kernel_name: str, launches: int = 50, per_call: int = 1) -> tuple:
+    """(ms, how): the mean device time of one call of fn in the kernel
+    whose name contains kernel_name (per_call launches of it a call), over
+    `launches` calls. From torch.profiler's device self time of that
+    kernel; if the profiler shows no device time, from a CUDA graph of the
+    calls replayed between two events (which also counts the wrapper's
+    other small kernels and the gaps between launches)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -351,8 +363,8 @@ def device_ms(fn, kernel_name: str, launches: int = 50) -> tuple:
             if us > 0:
                 total_us += us
                 count += evt.count
-    if count >= launches:
-        return total_us / count / 1e3, "profiler"
+    if count >= launches * per_call:
+        return total_us / (count / per_call) / 1e3, "profiler"
     return graph_ms(fn, launches), "cuda_graph"
 
 
@@ -588,11 +600,39 @@ def check_k1(frame: np.ndarray, frame_right: np.ndarray, cfg, card: dict, gen) -
             **bound(card, 8.0 * sum(im.numel() for im in both),
                     fp32_instr=16.0 * interior,
                     minmax_instr=8.0 * interior + 158.0 * passing)}
+    # more levels than one launch takes: the pyramids of both images at 9
+    # levels (18, stereo_wide's frame) and at 12 levels (24), one launch a
+    # group of kernels.even_groups
+    grouped = []
+    for n_lv in (9, 12):
+        both = [im.contiguous() for img in (frame, frame_right)
+                for im in pyramid.build_pyramid(torch.from_numpy(img).to(dev).float(),
+                                                n_lv, o.scale_factor)]
+        per_call = len(kernels.even_groups(len(both), kernels.MAX_LEVELS))
+        before = kernels.launch_counts()["fast_score_nms_levels"]
+        got = kernels.fast_score_nms_levels(both, thr)
+        torch.cuda.synchronize()
+        if kernels.launch_counts()["fast_score_nms_levels"] - before != per_call:
+            raise AssertionError(f"K1 at {len(both)} levels: not {per_call} launches")
+        require_equal(f"K1 {len(both)} levels", got,
+                      kernels.fast_score_nms_levels_ref(both, thr))
+        interior, passing = compass_pass_count(both, thr)
+        ms, how = device_ms(lambda: kernels.fast_score_nms_levels(both, thr),
+                            "fast_score_nms_levels_kernel", per_call=per_call)
+        grouped.append({
+            "shape": [list(im.shape) for im in both], "levels": len(both),
+            "launches_per_call": per_call, "inputs": "rendered stereo pair",
+            "max_abs_err": 0.0, "device_ms": ms, "device_ms_from": how,
+            "call_ms": call_ms(lambda: kernels.fast_score_nms_levels(both, thr)),
+            "plain_ms": call_ms(lambda: kernels.fast_score_nms_levels_ref(both, thr), reps=5),
+            "library_ms": None,
+            **bound(card, 8.0 * sum(im.numel() for im in both), fp32_instr=16.0 * interior,
+                    minmax_instr=8.0 * interior + 158.0 * passing)})
     emit("kernel_fast_score_nms", exact=True, per_level=per_level,
          per_level_device_ms_sum=sum(r["device_ms"] for r in per_level), all_levels=k1,
-         stereo_pair=pair)
+         stereo_pair=pair, grouped=grouped)
     return {"fast_score_nms_levels": dict(k1["frame"], on_noise=k1["noise"],
-                                          stereo_pair=pair)}
+                                          stereo_pair=pair, grouped=grouped)}
 
 
 
@@ -831,8 +871,10 @@ def check_k2_stereo(cfg, card: dict, gen) -> dict:
     """K2's stereo match, the row-band search (csrc/stereo_band.cu), at the
     stereo frame's shape (features x features): exactness on random, tie,
     on-the-tolerance, out-of-column-order tie and empty-band cases, then
-    times, and a KITTI-size pair (4,096 features a side, 1241 x 376) for how
-    the time grows. The bound counts the pairs that pass the float mask
+    times, a KITTI-size pair (4,096 features a side, 1241 x 376) for how
+    the time grows, and past one launch's 4,096 right features, in column
+    chunks: stereo_wide's 4,608 a side at 752 x 480 and 8,192 a side at
+    1241 x 376. The bound counts the pairs that pass the float mask
     (their products) and the float tests of the pairs within a row's
     tolerance (the pairs a row-indexed search has to test)."""
     from multi_orbslam3_tpu_torch.frontend import kernels
@@ -842,12 +884,17 @@ def check_k2_stereo(cfg, card: dict, gen) -> dict:
     rows = []
     cases = [(n, m, W, H, kind) for kind in ("random", "ties", "tolerance", "reversed_ties",
                                              "empty_band")]
-    cases.append((kernels.STEREO_MAX_M, kernels.STEREO_MAX_M, 1241, 376, "random"))
+    cases += [(4096, 4096, 1241, 376, "random"), (4608, 4608, W, H, "random"),
+              (8192, 8192, 1241, 376, "random")]
     for n_, m_, w_, h_, kind in cases:
         c = stereo_case(n_, m_, gen, dev, kind, w_, h_)
         fn = lambda: kernels.hamming_best_two_stereo(**c)
+        per_call = len(kernels.stereo_chunks(m_))
+        before = kernels.launch_counts()["hamming_best_two_stereo"]
         got = fn()
         torch.cuda.synchronize()
+        if kernels.launch_counts()["hamming_best_two_stereo"] - before != per_call:
+            raise AssertionError(f"K2 stereo {n_}x{m_}: not {per_call} launches")
         require_equal(f"K2 stereo {n_}x{m_} ({kind})", got,
                       kernels.hamming_best_two_stereo_ref(**c))
         matched = int((got[1] < kernels.BIG).sum())
@@ -874,9 +921,10 @@ def check_k2_stereo(cfg, card: dict, gen) -> dict:
         band = float(in_band.sum())
         n_valid = float(both.sum())
         del dv, disp, both, in_band
-        ms, how = device_ms(fn, "stereo_band_kernel")
+        ms, how = device_ms(fn, "stereo_band_kernel", per_call=per_call)
         rows.append({
-            "shape": [n_, m_], "image": [w_, h_], "inputs": kind, "valid_pairs": n_valid,
+            "shape": [n_, m_], "image": [w_, h_], "inputs": kind,
+            "launches_per_call": per_call, "valid_pairs": n_valid,
             "band_pairs": band, "window_pairs": passing, "rows_matched": matched,
             "max_abs_err": 0.0, "device_ms": ms, "device_ms_from": how,
             "call_ms": call_ms(fn),
@@ -886,7 +934,8 @@ def check_k2_stereo(cfg, card: dict, gen) -> dict:
             **bound(card, 49.0 * n_ + 45.0 * m_ + 16.0 * n_, hamming_pairs=passing,
                     fp32_instr=3.0 * band, minmax_instr=3.0 * band)})
     emit("kernel_hamming_best_two_stereo", exact=True, shapes=rows)
-    return {"hamming_best_two_stereo": dict(rows[0], shapes=rows)}
+    return {"hamming_best_two_stereo": dict(
+        rows[0], shapes=rows, chunked=[r for r in rows if r["launches_per_call"] > 1])}
 
 
 def check_matcher_memory(cfg, gen) -> None:
@@ -1026,8 +1075,10 @@ def drive_mono(cfg, seq, device: str, loop_closing: bool,
 
 
 def phase_sync_free(cfg, slam, seq, stereo_cfg, stereo_slam, stereo_seq, server,
-                    vi_server) -> None:
-    """The fused step (mono and stereo), the mapping chain, the
+                    vi_server, wide_slam) -> None:
+    """The fused step (mono, stereo, and stereo at stereo_wide's 4,608
+    features and 9 levels: two K1 launches and two seeded stereo chunks),
+    the mapping chain, the
     place-recognition step, one global-BA step on the collaborative
     server's final arena and one joint visual-inertial window solve on the
     inertial collaboration's launch their work without one device->host
@@ -1052,6 +1103,11 @@ def phase_sync_free(cfg, slam, seq, stereo_cfg, stereo_slam, stereo_seq, server,
     ir = stereo_slam.to_device(stereo_seq.images_right[-1])
     Ts_cur = stereo_slam._upload(stereo_slam.T_cur)
     Ts_vel = stereo_slam._upload(stereo_slam.T_vel)
+    wide_cfg = stereo_wide_config()
+    wl = wide_slam.to_device(stereo_seq.images[WIDE_FRAMES - 1])
+    wr = wide_slam.to_device(stereo_seq.images_right[WIDE_FRAMES - 1])
+    Tw_cur = wide_slam._upload(wide_slam.T_cur)
+    Tw_vel = wide_slam._upload(wide_slam.T_vel)
     own = np.nonzero(vi_server.m.kf_valid.cpu().numpy()
                      & (vi_server.m.kf_agent.cpu().numpy() == 0))[0]
     book = vi_server.agents[0]
@@ -1066,6 +1122,7 @@ def phase_sync_free(cfg, slam, seq, stereo_cfg, stereo_slam, stereo_seq, server,
         tracking.fused_step_chained(cfg, slam.m, img, T_cur, T_vel)
         tracking.fused_step_stereo_chained(stereo_cfg, stereo_slam.m, il, ir,
                                            Ts_cur, Ts_vel)
+        tracking.fused_step_stereo_chained(wide_cfg, wide_slam.m, wl, wr, Tw_cur, Tw_vel)
         local_mapping.map_keyframe(slam.m, k, slam.K,
                                    **local_mapping.mapping_kwargs(cfg))
         loop_closing._pr_step(lc.db, lc.voc, slam.m, k)
@@ -1076,6 +1133,7 @@ def phase_sync_free(cfg, slam, seq, stereo_cfg, stereo_slam, stereo_seq, server,
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     emit("sync_free", fused_step_chained=True, fused_step_stereo_chained=True,
+         fused_step_stereo_chained_wide=True,
          map_keyframe=True, pr_step=True, global_bundle_adjust=True,
          inertial_bundle_adjust=True, vi_window_keyframes=len(own))
 
@@ -1408,6 +1466,94 @@ def phase_stereo(cfg, seq, device: str = "cuda") -> tuple:
         problems.append(f"ATE without scale alignment {ate_rmse:.4f} m > 0.02 x span "
                         f"{span:.3f} m")
     return finish_phase("stereo", res, problems), slam
+
+
+# the stereo_wide cell: 4,608 ORB features over 9 levels, past one launch
+# of the stereo match (kernels.STEREO_CHUNK right features) and, for the
+# pair's 18 levels, of K1 (kernels.MAX_LEVELS); the map holds every
+# observation of a keyframe and more landmarks than 20 frames create
+WIDE_FEATURES, WIDE_LEVELS, WIDE_FRAMES = 4608, 9, 20
+WIDE_MAX_MAPPOINTS, WIDE_MAX_OBS = 32768, 262144
+# profiling/jax_stereo_wide_cpu.py: the JAX package on the same cell, on a
+# CPU (frames OK of 20, ATE without scale alignment / span)
+WIDE_REFERENCE = {"frames_ok": 20, "ate_rmse_no_scale": 0.010085974970331845,
+                  "span": 1.5763484239578247, "ate_over_span": 0.0063983157638515175}
+
+
+def stereo_wide_config():
+    from multi_orbslam3_tpu_torch import config as cfgm
+    return euroc_scale_config(baseline=0.11).replace(
+        sensor="stereo", orb=cfgm.ORBConfig(n_features=WIDE_FEATURES, n_levels=WIDE_LEVELS),
+        map=cfgm.MapConfig(max_mappoints=WIDE_MAX_MAPPOINTS, max_obs=WIDE_MAX_OBS,
+                           max_obs_per_kf=WIDE_FEATURES))
+
+
+def phase_stereo_wide(seq, device: str = "cuda") -> tuple:
+    """bench_stereo's first 20 frames at 4,608 features and 9 levels
+    (stereo_wide_config): StereoSlam with loop closing on through
+    process_frame_stereo_pipelined. Gates, bench_stereo's limits for 20
+    frames: >= 18 frames OK and ATE without scale alignment <= 0.02 x span;
+    K1 and the stereo match each launched twice a frame (two groups of 9
+    levels, two column chunks). Then, on frame 0's own inputs on the card,
+    K1 over the pair's 18 levels and the stereo match of its two feature
+    sets, each against its plain version bit for bit (these launches are
+    not counted)."""
+    from multi_orbslam3_tpu_torch.frontend import extractor, kernels, pyramid
+    from multi_orbslam3_tpu_torch.pipeline import StereoSlam, TrackState
+    start_phase()
+    cfg = stereo_wide_config()
+    F = WIDE_FRAMES
+    slam = StereoSlam(cfg, enable_loop_closing=True, device=device)
+    frame_ms, wall, launches = run_frames(
+        slam, F, lambda i: slam.process_frame_stereo_pipelined(
+            seq.images[i], seq.images_right[i], float(seq.timestamps[i])))
+    states = [st for _, st in slam.frame_log]
+    ok_idx = [i for i, st in enumerate(states) if st == TrackState.OK]
+    ate_rmse, span = ate_of(slam, seq, ok_idx, with_scale=False)
+    k1_per_frame = len(kernels.even_groups(2 * WIDE_LEVELS, kernels.MAX_LEVELS))
+    stereo_per_frame = len(kernels.stereo_chunks(WIDE_FEATURES))
+    # the kernels on frame 0's own inputs
+    il, ir = slam.to_device(seq.images[0]), slam.to_device(seq.images_right[0])
+    o = cfg.orb
+    levels = [im.contiguous() for img in (il, ir)
+              for im in pyramid.build_pyramid(img.float(), o.n_levels, o.scale_factor)]
+    require_equal("stereo_wide K1 (frame 0, 18 levels)",
+                  kernels.fast_score_nms_levels(levels, o.fast_threshold_min),
+                  kernels.fast_score_nms_levels_ref(levels, o.fast_threshold_min))
+    fl, fr = extractor.extract_features_pair(il, ir, cfg)
+    levelL = fl.level.to(torch.int32).contiguous()
+    args = dict(descL=fl.desc.contiguous(), uvL=fl.uv_und.contiguous(),
+                validL=fl.valid.contiguous(), levelL=levelL,
+                tol=kernels.stereo_row_tolerance(levelL, 2.0), descR=fr.desc.contiguous(),
+                uvR=fr.uv_und.contiguous(), validR=fr.valid.contiguous(),
+                levelR=fr.level.to(torch.int32).contiguous(), max_disparity=128.0)
+    got = kernels.hamming_best_two_stereo(**args)
+    torch.cuda.synchronize()
+    require_equal("stereo_wide stereo match (frame 0)", got,
+                  kernels.hamming_best_two_stereo_ref(**args))
+    res = {"frames": F, "frames_ok": len(ok_idx), "state": slam.state.name,
+           "n_features": WIDE_FEATURES, "n_levels": WIDE_LEVELS,
+           "valid_features_frame0": [int(fl.valid.sum()), int(fr.valid.sum())],
+           "frame0_rows_matched": int((got[1] < kernels.BIG).sum()),
+           "kf_inserted": slam.stats["kf_inserted"], "mp_created": slam.stats["mp_created"],
+           "mp_valid": int(slam.m.mp_valid.sum()), "max_mappoints": WIDE_MAX_MAPPOINTS,
+           "loops_closed": slam.loop_closer.loops_closed, "ate_rmse_no_scale": ate_rmse,
+           "span": span, "ate_over_span": ate_rmse / span,
+           "k1_launches_per_frame": launches["fast_score_nms_levels"] / F,
+           "stereo_launches_per_frame": launches["hamming_best_two_stereo"] / F,
+           "frame0_kernels_exact": True, "reference_jax_cpu": WIDE_REFERENCE,
+           **latency_stats(frame_ms, wall), "launches": launches}
+    problems = []
+    check_launches(launches, problems, k1_expected=k1_per_frame * F, both_fused=True,
+                   stereo_expected=stereo_per_frame * F)
+    if res["mp_valid"] >= WIDE_MAX_MAPPOINTS:
+        problems.append("the map's landmark capacity filled")
+    if len(ok_idx) < F - 2:
+        problems.append(f"{len(ok_idx)} of {F} frames OK (< {F - 2})")
+    if not ate_rmse <= 0.02 * span:
+        problems.append(f"ATE without scale alignment {ate_rmse:.4f} m > 0.02 x span "
+                        f"{span:.3f} m")
+    return finish_phase("stereo_wide", res, problems), slam
 
 
 def phase_rgbd(cfg, seq, n_frames: int = 40, device: str = "cuda") -> dict:
@@ -2339,6 +2485,7 @@ def main() -> int:
     res_reloc = timed("relocalize", phase_relocalize, cfg, seq, slam)
     res_atlas = timed("atlas_loop", phase_atlas_loop)
     res_stereo, stereo_slam = timed("stereo", phase_stereo, stereo_cfg, stereo_seq)
+    res_wide, wide_slam = timed("stereo_wide", phase_stereo_wide, stereo_seq)
     res_rgbd = timed("rgbd", phase_rgbd, stereo_cfg, stereo_seq)
     res_mi = timed("mono_inertial", phase_mono_inertial)
     res_si = timed("stereo_inertial", phase_stereo_inertial)
@@ -2356,7 +2503,7 @@ def main() -> int:
         seconds["collab_inertial"] = round(time.perf_counter() - t, 3)
     timed("full_inertial_gba", phase_full_inertial_gba)
     timed("sync_free", phase_sync_free, cfg, slam, seq, stereo_cfg, stereo_slam, stereo_seq,
-          server, vi_server)
+          server, vi_server, wide_slam)
     timed("sharded_gba", phase_sharded_gba, server)
     t = time.perf_counter()
     try:
@@ -2374,8 +2521,8 @@ def main() -> int:
     seconds["profiling"] = round(time.perf_counter() - t, 3)
     emit("total", seconds_by_phase=seconds,
          total_s=round(time.perf_counter() - T_START, 3))
-    paths = (res, res_off, res_reloc, res_atlas, res_stereo, res_rgbd, res_mi, res_si,
-             res_collab, res_ci, res_h, res_p)
+    paths = (res, res_off, res_reloc, res_atlas, res_stereo, res_wide, res_rgbd, res_mi,
+             res_si, res_collab, res_ci, res_h, res_p)
     # the harness's kernel micro-bench (eval/benchmarks.py::bench_kernels,
     # the JAX package's shapes): its mean ms a call, beside each row
     bk = res_h["bench_kernels"]
@@ -2404,10 +2551,11 @@ def main() -> int:
                 "library_ms": r.get("library_ms"),
                 **{k: r[k] for k in ("popc_bound_ms", "library", "library_prep_ms") if k in r},
                 "card": card["smi"],
-                **({"arena_shapes": [{k: a[k] for k in (
-                    "shape", "inputs", "device_ms", "call_ms", "plain_ms", "bound_ms",
-                    "bound_by", "limit", "popc_bound_ms")} for a in r["arena_shapes"]]}
-                   if "arena_shapes" in r else {}),
+                **{key: [{k: a[k] for k in (
+                    "shape", "inputs", "launches_per_call", "device_ms", "call_ms",
+                    "plain_ms", "bound_ms", "bound_by", "limit", "popc_bound_ms") if k in a}
+                    for a in r[key]]
+                   for key in ("arena_shapes", "grouped", "chunked") if key in r},
                 **({"bench_kernels": bench_rows[vname]} if vname in bench_rows else {})})
         head = next(v for v in variants if v["name"] == k["headline"])
         entries.append({**head, "name": name, "source": k["source"],

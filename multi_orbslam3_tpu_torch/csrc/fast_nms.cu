@@ -11,9 +11,11 @@
 // What bounds it on an H100: each level is read once and written once
 // (the 8 levels of a 752x480 frame hold 1.12 M pixels, 8.9 MB both ways),
 // which is microseconds of HBM time, so what a frame pays is the launches
-// and the per-pixel work. One launch covers every level: its grid is the
-// tiles of all levels, end to end, and a block finds its level by a scan
-// of a table of at most MAX_LEVELS entries. The table (pointers, sizes,
+// and the per-pixel work. One launch covers up to MAX_LEVELS levels (a
+// pyramid, or both pyramids of a stereo frame): its grid is the tiles of
+// all levels, end to end, and a block finds its level by a scan of the
+// table. The wrapper (kernels.py) sends more levels in groups of at most
+// MAX_LEVELS, one launch each, into one output buffer. The table (pointers, sizes,
 // first tile of each level) travels by value as a kernel parameter, so
 // the launch is safe on any stream and inside a CUDA graph capture.
 //
@@ -173,7 +175,7 @@ fast_score_nms_levels_kernel(const LevelTable t, float threshold) {
 
 }  // namespace
 
-// in/out: n device pointers each, (h[i], w[i]) float32 row-major; n <= 16.
+// in/out: n device pointers each, (h[i], w[i]) float32 row-major; n <= MAX_LEVELS.
 // Returns the cudaError of the launch, or cudaErrorInvalidValue for a
 // level count or size the table cannot hold.
 extern "C" int mo3_fast_score_nms_levels(const void* const* in, void* const* out,

@@ -59,9 +59,15 @@
 //    atomics leave any order: the statistics compare (distance, column)
 //    explicitly (stat_update_any_order), and the lanes merge by three warp
 //    reductions that take the lowest column among the best (redux.sync).
-// Shared memory: a 16-byte record a right column and the bucket offsets,
-// 73,744 bytes at the capacity of SB_MAX_M = 4,096 right features (a
-// KITTI-size frame); the wrapper raises above that.
+// 6. Shared memory holds a 16-byte record a right column and the bucket
+//    offsets, 73,744 bytes at SB_MAX_M = 4,096 right features (a
+//    KITTI-size frame). A larger right set goes through in column chunks of
+//    at most SB_MAX_M, one launch each (the wrapper, kernels.py): each
+//    chunk builds its own index from its own columns, reports global column
+//    indices (col_base + local), and every launch after the first merges
+//    the row's statistics so far, read from the outputs, with its own by
+//    stat_merge, the same (distance, column) rule, so the result does not
+//    depend on the order of the chunks. Up to SB_MAX_M it is one launch.
 //
 // Nothing is allocated here; the wrapper owns the outputs.
 
@@ -99,8 +105,12 @@ struct LeftRow {
 
 // SLOTS right columns a thread (SLOTS x SB_THREADS >= m): a compile-time
 // count keeps the loads of the prologue to the columns there are.
+// a.d2, a.uv2, a.valid2 and a.lev2 point at the chunk's first column,
+// col_base is that column's global index; with `seeded` the outputs hold
+// the statistics of the columns before it.
 template <int SLOTS>
-__global__ void __launch_bounds__(SB_THREADS) stereo_band_kernel(MatchArgs a) {
+__global__ void __launch_bounds__(SB_THREADS) stereo_band_kernel(MatchArgs a, int col_base,
+                                                                  bool seeded) {
   extern __shared__ __align__(16) unsigned char sb_smem[];
   float4* s_rec = reinterpret_cast<float4*>(sb_smem);                    // [m]
   int* s_off = reinterpret_cast<int*>(sb_smem + 16 * (size_t)a.m);     // [SB_OFFSETS]
@@ -242,11 +252,14 @@ __global__ void __launch_bounds__(SB_THREADS) stereo_band_kernel(MatchArgs a) {
           abs(__float_as_int(rec.z) - L.lev) > a.level_slack) continue;
       const int j = __float_as_int(rec.w);
       const int d = hamming256(L.lo, L.hi, __ldg(d2 + 2 * j), __ldg(d2 + 2 * j + 1));
-      stat_update_any_order(best, idx, second, d, j);
+      stat_update_any_order(best, idx, second, d, col_base + j);
     }
     stat_warp_merge(best, idx, second);
   }
   if (lane == 0) {
+    if (seeded)   // the earlier chunks' columns: (0, BIG, BIG) on an invalid row
+      stat_merge(best, idx, second, a.best[L.row], static_cast<int>(a.idx[L.row]),
+                 a.second[L.row]);
     a.idx[L.row] = idx;
     a.best[L.row] = best;
     a.second[L.row] = second;
@@ -256,20 +269,24 @@ __global__ void __launch_bounds__(SB_THREADS) stereo_band_kernel(MatchArgs a) {
 bool smem_ready[SB_MAX_DEVICES] = {false};
 
 template <int SLOTS>
-void launch_stereo_band(const MatchArgs& a, void* stream) {
+void launch_stereo_band(const MatchArgs& a, int col_base, bool seeded, void* stream) {
   stereo_band_kernel<SLOTS><<<(a.n + SB_ROWS - 1) / SB_ROWS, SB_THREADS, sb_smem_bytes(a.m),
-                              static_cast<cudaStream_t>(stream)>>>(a);
+                              static_cast<cudaStream_t>(stream)>>>(a, col_base, seeded);
 }
 
 }  // namespace
 
+// One chunk: right columns col_base .. col_base + m - 1 of d2, uv2, valid2
+// and lev2 (m <= SB_MAX_M); seeded != 0 merges into the outputs, which
+// then hold the result of the chunks before it.
 extern "C" int mo3_hamming_best_two_stereo(
     const int* d1, const float* uv1, const unsigned char* valid1,
     const float* row_tol, const int* lev1, int n, const int* d2,
     const float* uv2, const unsigned char* valid2, const int* lev2, int m,
-    float disp_min, float disp_max, int level_slack, long long* idx, int* best,
-    int* second, void* stream) {
-  if (m < 1 || m > SB_MAX_M || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+    int col_base, int seeded, float disp_min, float disp_max, int level_slack,
+    long long* idx, int* best, int* second, void* stream) {
+  if (m < 1 || m > SB_MAX_M || n < 1 || col_base < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -284,14 +301,15 @@ extern "C" int mo3_hamming_best_two_stereo(
   }
   MatchArgs a = {};
   a.d1 = d1; a.valid1 = valid1; a.n = n;
-  a.d2 = d2; a.valid2 = valid2; a.m = m;
+  a.d2 = d2 + (size_t)col_base * WORDS; a.valid2 = valid2 + col_base; a.m = m;
   a.uv1 = uv1; a.radius = row_tol; a.lev1 = lev1;
-  a.uv2 = uv2; a.lev2 = lev2; a.level_slack = level_slack;
+  a.uv2 = uv2 + 2 * (size_t)col_base; a.lev2 = lev2 + col_base; a.level_slack = level_slack;
   a.disp_min = disp_min; a.disp_max = disp_max;
   a.idx = idx; a.best = best; a.second = second;
   static_assert(8 * SB_THREADS == SB_MAX_M, "the widest instantiation holds SB_MAX_M");
-  if (m <= 2 * SB_THREADS) launch_stereo_band<2>(a, stream);
-  else if (m <= 4 * SB_THREADS) launch_stereo_band<4>(a, stream);
-  else launch_stereo_band<8>(a, stream);
+  const bool seed = seeded != 0;
+  if (m <= 2 * SB_THREADS) launch_stereo_band<2>(a, col_base, seed, stream);
+  else if (m <= 4 * SB_THREADS) launch_stereo_band<4>(a, col_base, seed, stream);
+  else launch_stereo_band<8>(a, col_base, seed, stream);
   return static_cast<int>(cudaGetLastError());
 }

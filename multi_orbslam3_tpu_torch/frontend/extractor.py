@@ -110,7 +110,7 @@ def extract_features_pair(img_l: torch.Tensor, img_r: torch.Tensor,
                           config) -> Tuple[FrameFeatures, FrameFeatures]:
     """ORB features of the two images of a stereo frame: the same results
     as two ``extract_features`` calls, with K1 launched once for the levels
-    of both pyramids."""
+    of both pyramids (in groups past kernels.MAX_LEVELS levels)."""
     o = config.orb
     lv_l = pyramid.build_pyramid(img_l.float(), o.n_levels, o.scale_factor)
     lv_r = pyramid.build_pyramid(img_r.float(), o.n_levels, o.scale_factor)

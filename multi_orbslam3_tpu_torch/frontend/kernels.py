@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels of the frontend and their plain versions
 (counterpart of multi_orbslam3_tpu/frontend/pallas_kernels.py).
 
-- K1 ``fast_score_nms_levels``: FAST-9/16 score + 3x3 NMS of every level
-  of a pyramid in one launch (``csrc/fast_nms.cu``); ``fast_score_nms`` is
-  the same call with one level.
+- K1 ``fast_score_nms_levels``: FAST-9/16 score + 3x3 NMS of up to
+  MAX_LEVELS levels in one launch (``csrc/fast_nms.cu``; more levels go in
+  groups, one launch each); ``fast_score_nms`` is the same call with one
+  level.
 - K2 ``hamming_matrix``: (N, 8) x (M, 8) packed descriptor words ->
   (N, M) int32 Hamming distances, written tile by tile from the 1-bit
   tensor-core MMA by a persistent grid (``csrc/hamming_mma.cu``), and its
@@ -16,7 +17,9 @@
   ``hamming_best_two_stereo`` (validity, epipolar row, disparity range and
   pyramid level between a left and a right feature set; the row results),
   a row-band search over a per-row index of the right set built in shared
-  memory (``csrc/stereo_band.cu``). ``hamming_best_two_valid`` has two
+  memory (``csrc/stereo_band.cu``; one launch for up to STEREO_CHUNK right
+  features, one a chunk of columns beyond, each seeded with the rows'
+  results so far). ``hamming_best_two_valid`` has two
   inner products: ``__popc`` (``csrc/hamming.cu``) and the 1-bit
   tensor-core MMA (``csrc/hamming_mma.cu``).
 
@@ -60,8 +63,8 @@ HEADERS = ("match_core.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BIG = 10_000          # distance of a masked pair (csrc/match_core.cuh)
-MAX_LEVELS = 16       # capacity of K1's level table (csrc/fast_nms.cu)
-STEREO_MAX_M = 4096   # right features the stereo match holds (csrc/stereo_band.cu)
+MAX_LEVELS = 16       # levels of one K1 launch (its table, csrc/fast_nms.cu)
+STEREO_CHUNK = 4096   # right features of one stereo launch (its index, csrc/stereo_band.cu)
 STEREO_MAX_BUCKETS = 2048   # image rows its index spans (the rest: overflow)
 STEREO_V_LIMIT = 2.0 ** 20  # |v| at or above this: the overflow bucket
 
@@ -146,7 +149,8 @@ def _lib():
             fns.hamming_best_two_projection.argtypes = [
                 vp, vp, vp, vp, cf, vp, ci, vp, vp, vp, vp, ci, ci, vp, vp, vp, vp]
             fns.hamming_best_two_stereo.argtypes = [
-                vp, vp, vp, vp, vp, ci, vp, vp, vp, vp, ci, cf, cf, ci, vp, vp, vp, vp]
+                vp, vp, vp, vp, vp, ci, vp, vp, vp, vp, ci, ci, ci, cf, cf, ci,
+                vp, vp, vp, vp]
             for fn in vars(fns).values():
                 fn.restype = ci
             _lib_handle = fns
@@ -202,19 +206,28 @@ def fast_score_nms_levels_ref(levels: Sequence[torch.Tensor],
     return [fast_score_nms_ref(im, threshold) for im in levels]
 
 
+def even_groups(n: int, cap: int) -> List[Tuple[int, int]]:
+    """[start, end) runs that cover 0 .. n - 1 in order, each at most `cap`
+    long: as few as `cap` allows, of even length. One run when n <= cap;
+    none when n = 0."""
+    if n <= 0:
+        return []
+    width = -(-n // -(-n // cap))
+    return [(s, min(n, s + width)) for s in range(0, n, width)]
+
+
 def fast_score_nms_levels(levels: Sequence[torch.Tensor],
                           threshold: float) -> List[torch.Tensor]:
     """(H_i, W_i) float32 levels -> their (H_i, W_i) float32 NMS'd FAST
     scores (0 on the 3-px border). CPU: plain version; CUDA: kernel K1,
-    one launch for all levels; the results are views of one buffer."""
+    one launch for up to MAX_LEVELS levels and one a group of at most
+    MAX_LEVELS beyond (even_groups: the 18 levels of a 9-level stereo pair
+    are two launches of 9); the results are views of one buffer."""
     levels = list(levels)
     if _all_cpu(*levels):
         return fast_score_nms_levels_ref(levels, threshold)
     for im in levels:
         _check_cuda("fast_score_nms_levels", im, torch.float32, (None, None))
-    if len(levels) > MAX_LEVELS:
-        raise ValueError(f"fast_score_nms_levels: {len(levels)} levels, the "
-                         f"kernel's table holds {MAX_LEVELS}")
     flat = torch.empty(sum(im.numel() for im in levels), dtype=torch.float32,
                        device=levels[0].device)
     outs, offset = [], 0
@@ -222,13 +235,13 @@ def fast_score_nms_levels(levels: Sequence[torch.Tensor],
         outs.append(flat[offset:offset + im.numel()].view(im.shape))
         offset += im.numel()
     work = [(im, out) for im, out in zip(levels, outs) if im.numel() > 0]
-    if work:
-        n = len(work)
+    for lo, hi in even_groups(len(work), MAX_LEVELS):
+        group, n = work[lo:hi], hi - lo
         _launch("fast_score_nms_levels",
-                (ctypes.c_void_p * n)(*(im.data_ptr() for im, _ in work)),
-                (ctypes.c_void_p * n)(*(out.data_ptr() for _, out in work)),
-                (ctypes.c_int * n)(*(im.shape[0] for im, _ in work)),
-                (ctypes.c_int * n)(*(im.shape[1] for im, _ in work)),
+                (ctypes.c_void_p * n)(*(im.data_ptr() for im, _ in group)),
+                (ctypes.c_void_p * n)(*(out.data_ptr() for _, out in group)),
+                (ctypes.c_int * n)(*(im.shape[0] for im, _ in group)),
+                (ctypes.c_int * n)(*(im.shape[1] for im, _ in group)),
                 n, float(threshold))
     return outs
 
@@ -457,20 +470,29 @@ STEREO_MIN_DISPARITY = 0.3
 STEREO_LEVEL_SLACK = 1
 
 
+# 1.2^level overflows float32 from level 487 on: the table's last entry
+# is inf, as the float32 power is for every level above it
+STEREO_TOL_LEVELS = 512
+
+
 @functools.lru_cache(maxsize=8)
 def _stereo_tol_table(row_tol: float, device: torch.device) -> torch.Tensor:
-    """row_tol * 1.2^level for levels 0..31 in float32: the power taken in
-    float64 on float32(1.2) and rounded once, which is what the JAX package's
-    float32 ``power`` gives on every level, whatever the device's powf."""
-    table = np.float32(row_tol) * (
-        np.float64(np.float32(1.2)) ** np.arange(32)).astype(np.float32)
+    """row_tol * 1.2^level for levels 0 .. STEREO_TOL_LEVELS - 1 in float32:
+    the power taken in float64 on float32(1.2) and rounded once, which is
+    what the JAX package's float32 ``power`` gives on every level, whatever
+    the device's powf."""
+    with np.errstate(over="ignore"):
+        table = np.float32(row_tol) * (np.float64(np.float32(1.2))
+                                       ** np.arange(STEREO_TOL_LEVELS)).astype(np.float32)
     return torch.from_numpy(table).to(device)
 
 
 def stereo_row_tolerance(level: torch.Tensor, row_tol: float) -> torch.Tensor:
-    """(N,) float32 epipolar row tolerance of left features at `level`."""
+    """(N,) float32 epipolar row tolerance of left features at `level`
+    (levels are not negative; any level above the table reads its last
+    entry, the same inf)."""
     table = _stereo_tol_table(float(row_tol), level.device)
-    return table[torch.clamp(level, 0, 31).long()]
+    return table[torch.clamp(level, 0, STEREO_TOL_LEVELS - 1).long()]
 
 
 def hamming_best_two_stereo_ref(descL, uvL, validL, levelL, tol, descR, uvR,
@@ -488,17 +510,27 @@ def hamming_best_two_stereo_ref(descL, uvL, validL, levelL, tol, descR, uvR,
     return best_two(torch.where(mask, hamming_matrix_ref(descL, descR), BIG))
 
 
+def stereo_chunks(m: int) -> List[Tuple[int, int]]:
+    """The column chunks of the stereo match's launches: STEREO_CHUNK
+    columns each, the rest in the last. A launch's cost follows its
+    compile-time slot count (csrc/stereo_band.cu: 2, 4 or 8 columns a
+    thread by the chunk's width), so full chunks and a narrow rest beat even
+    ones: 4,608 columns as 4,096 + 512, not 2 x 2,304."""
+    return [(s, min(m, s + STEREO_CHUNK)) for s in range(0, m, STEREO_CHUNK)]
+
+
 def stereo_band_candidates(uvL, validL, tol, uvR, validR) -> List[np.ndarray]:
-    """The right columns that csrc/stereo_band.cu visits for each left row,
-    in its order: valid columns keyed by floor(v) (|v| < 2^20; others, NaN
-    and inf included, in an overflow bucket), the buckets spanning the
-    smallest to the largest key, at most STEREO_MAX_BUCKETS (keys beyond go
-    to the overflow bucket); a row visits the overflow bucket, then the
-    buckets of keys floor(vL - tol) - 1 .. floor(vL + tol) + 1 (every bucket
-    when that band is not finite or not below 2^20). Within a bucket the
-    kernel's atomics leave any order: here the columns come in descending
-    order, the one that a first-seen tie rule would get wrong. An invalid
-    left row visits nothing."""
+    """The right columns that csrc/stereo_band.cu visits for each left row
+    in one launch, in its order (uvR, validR: that launch's chunk; the
+    indices are the chunk's own): valid columns keyed by floor(v) (|v| <
+    2^20; others, NaN and inf included, in an overflow bucket), the buckets
+    spanning the smallest to the largest key, at most STEREO_MAX_BUCKETS
+    (keys beyond go to the overflow bucket); a row visits the overflow
+    bucket, then the buckets of keys floor(vL - tol) - 1 .. floor(vL + tol)
+    + 1 (every bucket when that band is not finite or not below 2^20).
+    Within a bucket the kernel's atomics leave any order: here the columns
+    come in descending order, the one that a first-seen tie rule would get
+    wrong. An invalid left row visits nothing."""
     vL = uvL[:, 1].cpu().numpy()
     tolv = tol.cpu().numpy()
     vR = uvR[:, 1].cpu().numpy()
@@ -533,14 +565,29 @@ def stereo_band_candidates(uvL, validL, tol, uvR, validR) -> List[np.ndarray]:
     return out
 
 
+def stat_merge(a: Tuple[int, int, int], b: Tuple[int, int, int]) -> Tuple[int, int, int]:
+    """Merge the (best, idx, second) of two disjoint column sets, as
+    csrc/match_core.cuh's stat_merge does: the lower (distance, column)
+    wins; the loser's best is one more candidate for second."""
+    (b1, i1, s1), (b2, i2, s2) = a, b
+    if (b2, i2) < (b1, i1):
+        return b2, i2, min(s1, s2, b1)
+    return b1, i1, min(s1, s2, b2)
+
+
 def hamming_best_two_stereo_banded_ref(descL, uvL, validL, levelL, tol, descR, uvR,
                                        validR, levelR, max_disparity: float):
-    """CPU model of csrc/stereo_band.cu: each left row visits the columns of
-    ``stereo_band_candidates`` in that order, applies the exact float32
-    tests of the plain version and keeps (best, idx, second) ordered by
-    (distance, column), as the kernel's lanes do. Equal to
-    hamming_best_two_stereo_ref wherever the band holds every unmasked
-    pair, which is what the kernel's spare row on each side ensures."""
+    """CPU model of csrc/stereo_band.cu: for each chunk of stereo_chunks,
+    each left row visits the columns of ``stereo_band_candidates`` in that
+    order, applies the exact float32 tests of the plain version and keeps
+    (best, idx, second) ordered by (distance, column), as the kernel's
+    lanes do; then it merges them into the row's result so far by
+    stat_merge, as a seeded launch does. The kernel launches the chunks in
+    column order; the merge does not depend on it, and here they come last
+    first, the order that a merge keeping the first chunk's column on a tie
+    would get wrong. Equal to hamming_best_two_stereo_ref wherever the band
+    holds every unmasked pair, which is what the kernel's spare row on each
+    side ensures."""
     f32 = np.float32
     uL, vL = (uvL[:, k].cpu().numpy() for k in (0, 1))
     uR, vR = (uvR[:, k].cpu().numpy() for k in (0, 1))
@@ -552,20 +599,24 @@ def hamming_best_two_stereo_banded_ref(descL, uvL, validL, levelL, tol, descR, u
     idx = np.zeros(n, dtype=np.int64)
     best = np.full(n, BIG, dtype=np.int32)
     second = np.full(n, BIG, dtype=np.int32)
-    cands = stereo_band_candidates(uvL, validL, tol, uvR, validR)
-    for i, c in enumerate(cands):
-        with np.errstate(invalid="ignore"):
-            ok = ((np.abs(vL[i] - vR[c]) <= tolv[i]) & (uL[i] - uR[c] > f32(STEREO_MIN_DISPARITY))
-                  & (uL[i] - uR[c] < f32(max_disparity))
-                  & (np.abs(lvR[c] - lvL[i]) <= STEREO_LEVEL_SLACK))
-        b, j0, s = BIG, 0, BIG
-        for j in c[ok]:
-            d = int(np.bitwise_count(dL[i] ^ dR[j]).sum())
-            if d < b or (d == b and j < j0):
-                b, j0, s = d, int(j), b
-            else:
-                s = min(s, d)
-        idx[i], best[i], second[i] = j0, b, s
+    for c0, c1 in stereo_chunks(descR.shape[0])[::-1]:
+        cands = stereo_band_candidates(uvL, validL, tol, uvR[c0:c1], validR[c0:c1])
+        for i, c in enumerate(cands):
+            c = c + c0
+            with np.errstate(invalid="ignore"):
+                ok = ((np.abs(vL[i] - vR[c]) <= tolv[i])
+                      & (uL[i] - uR[c] > f32(STEREO_MIN_DISPARITY))
+                      & (uL[i] - uR[c] < f32(max_disparity))
+                      & (np.abs(lvR[c] - lvL[i]) <= STEREO_LEVEL_SLACK))
+            b, j0, s = BIG, 0, BIG
+            for j in c[ok]:
+                d = int(np.bitwise_count(dL[i] ^ dR[j]).sum())
+                if d < b or (d == b and j < j0):
+                    b, j0, s = d, int(j), b
+                else:
+                    s = min(s, d)
+            best[i], idx[i], second[i] = stat_merge(
+                (int(best[i]), int(idx[i]), int(second[i])), (b, j0, s))
     dev = descL.device
     return (torch.from_numpy(idx).to(dev), torch.from_numpy(best).to(dev),
             torch.from_numpy(second).to(dev))
@@ -585,7 +636,9 @@ def hamming_best_two_stereo(descL: torch.Tensor, uvL: torch.Tensor,
 
     CPU: plain version; CUDA: the row-band search (csrc/stereo_band.cu),
     which indexes the right set by image row in shared memory and tests
-    only the pairs within a row's band; M is at most STEREO_MAX_M."""
+    only the pairs within a row's band: one launch for M <= STEREO_CHUNK,
+    else one a chunk of stereo_chunks(M) in column order, each after the
+    first merging into the results of the ones before."""
     n, m = descL.shape[0], descR.shape[0]
     if n == 0 or m == 0:
         dev = descL.device
@@ -606,20 +659,18 @@ def hamming_best_two_stereo(descL: torch.Tensor, uvL: torch.Tensor,
     _check_cuda(name, uvR, torch.float32, (m, 2))
     _check_cuda(name, validR, torch.bool, (m,))
     _check_cuda(name, levelR, torch.int32, (m,))
-    if m > STEREO_MAX_M:
-        raise ValueError(f"{name}: {m} right features, the kernel's index holds "
-                         f"{STEREO_MAX_M}")
     descL, descR = _aligned16(descL), _aligned16(descR)
     uvL, uvR = _aligned16(uvL), _aligned16(uvR)
     dev = descL.device
     idx = torch.empty(n, dtype=torch.int64, device=dev)
     best = torch.empty(n, dtype=torch.int32, device=dev)
     second = torch.empty(n, dtype=torch.int32, device=dev)
-    _launch(name, descL.data_ptr(), uvL.data_ptr(), validL.data_ptr(),
-            tol.data_ptr(), levelL.data_ptr(), n, descR.data_ptr(),
-            uvR.data_ptr(), validR.data_ptr(), levelR.data_ptr(), m,
-            STEREO_MIN_DISPARITY, float(max_disparity), STEREO_LEVEL_SLACK,
-            idx.data_ptr(), best.data_ptr(), second.data_ptr())
+    for c0, c1 in stereo_chunks(m):
+        _launch(name, descL.data_ptr(), uvL.data_ptr(), validL.data_ptr(),
+                tol.data_ptr(), levelL.data_ptr(), n, descR.data_ptr(),
+                uvR.data_ptr(), validR.data_ptr(), levelR.data_ptr(), c1 - c0, c0,
+                int(c0 > 0), STEREO_MIN_DISPARITY, float(max_disparity),
+                STEREO_LEVEL_SLACK, idx.data_ptr(), best.data_ptr(), second.data_ptr())
     return idx, best, second
 
 

@@ -71,6 +71,27 @@ def test_fast_score_nms_levels_kernel_equals_plain(dev, shapes):
     assert sum(int((g > 0).sum()) for g in got) > 0
 
 
+@pytest.mark.parametrize("shapes", [[(40, 40)] * 17, PYRAMID_SHAPES + PYRAMID_SHAPES[:1]
+                                    + PYRAMID_SHAPES + PYRAMID_SHAPES[:1],
+                                    [(17 + k, 33 + 2 * k) for k in range(24)]])
+def test_fast_score_nms_levels_above_one_launch_equals_plain(dev, shapes):
+    """More levels than one launch takes: 17 levels, the 18 levels of a
+    9-level stereo pair at the bench camera's shapes (two launches of 9)
+    and 24 levels; exact level by level, one launch a group of
+    kernels.even_groups, the results views of one buffer."""
+    levels = [_noise(sh, i, dev) for i, sh in enumerate(shapes)]
+    groups = kernels.even_groups(len(levels), kernels.MAX_LEVELS)
+    assert len(groups) == 2
+    before = kernels.launch_counts()["fast_score_nms_levels"]
+    got = kernels.fast_score_nms_levels(levels, 7.0)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fast_score_nms_levels"] == before + len(groups)
+    for g, want in zip(got, kernels.fast_score_nms_levels_ref(levels, 7.0)):
+        assert torch.equal(g, want)
+    assert len({g.untyped_storage().data_ptr() for g in got}) == 1
+    assert sum(int((g > 0).sum()) for g in got) > 0
+
+
 def test_fast_score_nms_levels_on_a_side_stream_and_in_a_cuda_graph(dev):
     """The level table travels as a kernel parameter, so the launch works
     on a non-default stream and can be captured in a CUDA graph: the replay
@@ -369,6 +390,37 @@ def test_hamming_best_two_stereo_band_search_equals_plain(dev, n, m, kind):
         assert (got[1][:16] == 0).all() and (got[1][40:80] == kernels.BIG).all()
 
 
+@pytest.mark.parametrize("kind", ["random", "tolerance", "reversed_ties", "empty_band"])
+@pytest.mark.parametrize("m", [4096, 4097, 8192, 12288])
+def test_hamming_best_two_stereo_in_column_chunks_equals_plain(dev, m, kind):
+    """More right features than one launch's index holds: one launch a
+    chunk of kernels.stereo_chunks, each seeded with the rows' results so
+    far (4,096 stays one launch); exact against the plain version and the
+    banded CPU model on random pairs, pairs on the limits, ties out of
+    column order (the last tied column in the last chunk) and empty
+    bands."""
+    n = 1024
+    c = (_stereo_case(n, m, dev, kind) if kind in ("random", "tolerance")
+         else _stereo_band_case(n, m, dev, kind))
+    chunks = kernels.stereo_chunks(m)
+    assert len(chunks) == -(-m // kernels.STEREO_CHUNK)
+    before = kernels.launch_counts()["hamming_best_two_stereo"]
+    got = kernels.hamming_best_two_stereo(**c, max_disparity=128.0)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["hamming_best_two_stereo"] == before + len(chunks)
+    want = kernels.hamming_best_two_stereo_ref(**c, max_disparity=128.0)
+    model = kernels.hamming_best_two_stereo_banded_ref(
+        **{k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in c.items()},
+        max_disparity=128.0)
+    for g, w, b, what in zip(got, want, model, ("idx", "best", "second")):
+        assert g.dtype == w.dtype and torch.equal(g, w), what
+        assert torch.equal(g.cpu(), b), what
+    assert int((got[1] < kernels.BIG).sum()) > 10
+    if kind == "reversed_ties":
+        rows = torch.arange(0, n, 6, device=dev)
+        assert (got[0][rows] == 10).all() and (got[2][rows] == 0).all()
+
+
 def test_stereo_band_search_on_a_side_stream_and_in_a_cuda_graph(dev):
     """The stereo kernel on a non-default stream, and captured in a CUDA
     graph and replayed on moved right features."""
@@ -436,8 +488,10 @@ def test_fused_matches_on_a_side_stream(dev):
 def test_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError):
         kernels.fast_score_nms(torch.zeros((8, 8), device=dev, dtype=torch.float64), 7.0)
-    with pytest.raises(ValueError):
-        kernels.fast_score_nms_levels([torch.zeros((8, 8), device=dev)] * 17, 7.0)
+    seventeen = [_noise((8, 8), k, dev) for k in range(17)]
+    got = kernels.fast_score_nms_levels(seventeen, 7.0)
+    assert all(torch.equal(g, w) for g, w in
+               zip(got, kernels.fast_score_nms_levels_ref(seventeen, 7.0)))
     with pytest.raises(ValueError):
         kernels.hamming_matrix(torch.zeros((4, 8), device=dev, dtype=torch.int32),
                                torch.zeros((4, 4), device=dev, dtype=torch.int32))
@@ -447,10 +501,11 @@ def test_kernels_reject_what_they_do_not_take(dev):
         kernels.hamming_best_two_valid(d, v.to(torch.uint8), d, v)
     with pytest.raises(ValueError):
         kernels.hamming_best_two_valid(d, v, d, v, inner="wgmma")
-    c = _stereo_case(64, kernels.STEREO_MAX_M + 1, dev, "random")
-    with pytest.raises(ValueError, match="index holds"):
-        kernels.hamming_best_two_stereo(**c, max_disparity=128.0)
-    c = _stereo_case(64, kernels.STEREO_MAX_M, dev, "random")
+    c = _stereo_case(64, kernels.STEREO_CHUNK + 1, dev, "random")
+    got = kernels.hamming_best_two_stereo(**c, max_disparity=128.0)
+    want = kernels.hamming_best_two_stereo_ref(**c, max_disparity=128.0)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    c = _stereo_case(64, kernels.STEREO_CHUNK, dev, "random")
     with pytest.raises(ValueError):
         kernels.hamming_best_two_stereo(**dict(c, uvR=c["uvR"].double()),
                                         max_disparity=128.0)
