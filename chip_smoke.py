@@ -107,12 +107,17 @@ failure:
    match (its cascade) and the fused projection match (its arena fuse).
    Run under torch's deterministic algorithms with the server's
    `deterministic` flag (one GBA step a cycle, adoption on a fixed
-   cycle): free-running, about one run in four or five ends with one
-   agent's keyframes metres off (see `reproducible`).
+   cycle): free-running, about one run in six ends with one agent's
+   keyframes metres off, as the JAX package's own runs do on three of
+   seeds 31-34 (see `reproducible`; profiling/jax_collab_cpu.py).
    Prints merges, loops, GBA runs/rejections/aborts, culls, bytes up and
    down, total_fps_wall, the server comm_cycle's ms (p50/p90/p99, CUDA
    events), one GN step with 40 CG iterations on the final arena, the
-   cascade's and correct_loop's ms, peak memory and codec_native;
+   cascade's and correct_loop's ms, peak memory, codec_native and the
+   merge record's summary (`merge_record`: each accepted merge's RANSAC
+   inliers, n_proj and Sim3 error against ground truth, agent 1's median
+   own-landmark inliers over the 20 frames before and after the first
+   merge; profiling/collab_merge_record.py);
 12. collab_inertial (under `reproducible`, with the server's
    `deterministic` flag): tests/test_collab_inertial.py's drill at
    synthetic_mono's full width (640x480, 1024 features, 8 levels, 512
@@ -193,6 +198,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -268,11 +274,12 @@ def reproducible():
     gates are then checked on a result that repeats. The collab phase runs
     under it too, with the server's `deterministic` flag, which takes the
     GBA's step and adoption timing off the host's speed. Free-running,
-    three of thirteen runs on an H100 ended with an agent's arena keyframes
-    1.0-2.2 m off after alignment: after the merge, one client's tracking
-    drifted metres off while it reported every frame OK, and its own map
-    was as far off as the arena (profiling/torch_collab_runs.py --trace).
-    Deterministic runs repeat one result, which passes. (The port works on one
+    four of 24 runs on an H100 (seeds 31-34) ended with an agent's arena
+    keyframes 0.2-2.6 m off after alignment: after the merge, one client's
+    own-landmark inliers thinned to 20-50 and its tracking drifted metres
+    off while it reported every frame OK. The JAX package's runs fail the
+    same way, on three of those four seeds (profiling/jax_collab_cpu.py).
+    Deterministic runs repeat one result, which passes on seed 31. (The port works on one
     stream, so cuBLAS keeps one order without a fixed workspace: the result
     is the same digits with and without CUBLAS_WORKSPACE_CONFIG.)"""
     before = (torch.are_deterministic_algorithms_enabled(),
@@ -1767,7 +1774,7 @@ def gn_step_ms(server, device: str = "cuda") -> dict:
 
 
 def phase_collab(device: str = "cuda", n_frames: int = 150, config=None,
-                 deterministic: bool = False, on_cycle=None) -> tuple:
+                 deterministic: bool = False, on_cycle=None, seed: int = 31) -> tuple:
     """bench_collab (eval/benchmarks.py:186-287) on the port: two
     CollabClients of monocular agents and a CollabServer over
     InProcessTransport, the synthetic_mono config (640x480, 1024 features,
@@ -1777,9 +1784,14 @@ def phase_collab(device: str = "cuda", n_frames: int = 150, config=None,
     arc 2.3 pi), GBA on events and periodic, drain_gba at the end. One
     timed pass (the JAX bench's warm-up pass is dropped). Scored on each
     agent's server-arena keyframes matched to ground truth by timestamp.
-    deterministic sets the server's flag of that name; on_cycle(i, server,
-    clients, seqs) is called after each server cycle and, with i = F,
-    after drain_gba (profiling/torch_collab_runs.py --trace)."""
+    deterministic sets the server's flag of that name; seed the sequence's;
+    on_cycle(i, server, clients, seqs) is called after each server cycle
+    and, with i = F, after drain_gba (profiling/torch_collab_runs.py
+    --trace). Without on_cycle the phase keeps its own merge record
+    (profiling/collab_merge_record.py, cycles off) and prints its summary
+    as `merge_record`: each accepted merge's RANSAC inliers, n_proj and
+    Sim3 error against ground truth, and agent 1's median own-landmark
+    inliers over the 20 frames before and after the first merge."""
     from multi_orbslam3_tpu_torch import config as cfgm
     from multi_orbslam3_tpu_torch.collab import CollabClient, CollabServer, codec
     from multi_orbslam3_tpu_torch.collab.transport import InProcessTransport
@@ -1792,7 +1804,7 @@ def phase_collab(device: str = "cuda", n_frames: int = 150, config=None,
         start_phase()
     c = config or cfgm.synthetic_mono()
     n_agents, F = 2, n_frames
-    seqs = [synthetic.make_sequence(c, n_frames=F, n_points=1200, seed=31,
+    seqs = [synthetic.make_sequence(c, n_frames=F, n_points=1200, seed=seed,
                                     trajectory="circle", phase=1.1 + 0.55 * a,
                                     arc=2.3 * np.pi) for a in range(n_agents)]
     tr = InProcessTransport()
@@ -1800,7 +1812,15 @@ def phase_collab(device: str = "cuda", n_frames: int = 150, config=None,
     server = CollabServer(c, tr, n_agents=n_agents, device=device)
     server.deterministic = deterministic
     warm_torch_func(device)
+    record = None
+    if on_cycle is None:
+        sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                        "profiling"))
+        import collab_merge_record
+        on_cycle = record = collab_merge_record.MergeRecord(lcm, cycles=False)
     timer = StageTimes(lcm, ["verify_candidate_cascade", "correct_loop"])
+    if record is not None:
+        record.install(server, clients, seqs)   # inside the timer: closed first
     states = [[] for _ in range(n_agents)]
     server_launches = collections.Counter()
     cycle_events = []
@@ -1827,6 +1847,8 @@ def phase_collab(device: str = "cuda", n_frames: int = 150, config=None,
     sync(device)
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    if hasattr(on_cycle, "close"):
+        on_cycle.close()        # before the timer: it wraps the timer's wrapper
     stages = timer.close()
     cycle_ms = [s_.elapsed_time(e) for s_, e in cycle_events]
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20 if device == "cuda" else None
@@ -1873,7 +1895,9 @@ def phase_collab(device: str = "cuda", n_frames: int = 150, config=None,
            "correct_loop_ms": stages["correct_loop"]["ms"],
            "peak_mem_mib_run": peak_mib, "codec_native": codec.native_available(),
            "server": dict(st), **agents, "launches": launches,
-           "server_launches": dict(server_launches)}
+           "server_launches": dict(server_launches), "seed": seed}
+    if record is not None:
+        res["merge_record"] = record.summary()
     check_launches(launches, problems, k1_expected=n_agents * F, stereo_expected=0)
     valid = server_launches["hamming_best_two_valid_popc"] + \
         server_launches["hamming_best_two_valid_mma"]

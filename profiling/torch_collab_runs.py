@@ -1,8 +1,9 @@
 """Repeat chip_smoke.py's collab phase on one card and print its spread.
 
-    python3 profiling/torch_collab_runs.py [--runs N] [--deterministic-runs M]
-                                           [--kernels] [--trace DIR] [--inertial]
-                                           [--frames F]
+    python3 profiling/torch_collab_runs.py [--runs N] [--fixed-runs K]
+                                           [--deterministic-runs M] [--seeds 31,32]
+                                           [--kernels] [--trace DIR] [--record DIR]
+                                           [--dump DIR] [--inertial] [--frames F]
 
 --inertial repeats the collab_inertial phase instead (a mono-inertial and
 a mono agent, tests/test_collab_inertial.py's drill at full width, F
@@ -10,10 +11,18 @@ frames an agent), and prints after each run a `gate_curve` line: the
 drill's gates after every frame from 90 on, as if the run had ended
 there, and the first frame count at which all of them pass. Runs
 the phase N times in one process (each on fresh clients and server;
-the first also pays the first use of every code path), then M times with
-the server's `deterministic` flag under chip_smoke.reproducible (torch's
-deterministic algorithms), each printing its JSON line, then one `spread`
-line per mode with each metric's values over the runs. --kernels first
+the first also pays the first use of every code path), then K times with
+the server's `deterministic` flag (the GBA's schedule fixed, float
+atomics free), then M times with the flag under chip_smoke.reproducible
+(torch's deterministic algorithms), each printing its JSON line, then one
+`spread` line per mode with each metric's values over the runs; all of it
+for each of --seeds (the collab sequence's seed). --record DIR writes
+each collab run's merge record (profiling/collab_merge_record.py) with
+the phase's result to DIR and prints a `record` line a run: each agent's
+ATE, whether the ATE gate (0.02 x max(span, 1)) failed, and the merge
+summary. --dump DIR dumps the state at the first accepted merge of the
+first deterministic run of the first seed for
+profiling/collab_merge_replay.py. --kernels first
 holds K2 at the arena shapes (chip_smoke.check_k2_arena). --trace DIR
 records after every server cycle each agent's server-arena keyframe ATE
 (Umeyama-aligned, as the phase scores it), the keyframe ATE of the
@@ -39,9 +48,16 @@ import sys
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-import chip_smoke as cs  # noqa: E402
 
 import torch  # noqa: E402
+
+
+def _cs():
+    """chip_smoke, imported on first use: profiling/collab_merge_record.py
+    imports this module from chip_smoke.phase_collab and from the JAX
+    package's CPU runs."""
+    import chip_smoke
+    return chip_smoke
 
 KEYS = ("merges", "loops", "gba_runs", "gba_rejected", "gba_aborted", "kf_culled",
         "mp_culled", "total_fps_wall", "wall_s", "comm_cycle_ms_p50", "comm_cycle_ms_p90",
@@ -54,6 +70,12 @@ INERTIAL_KEYS = ("merges", "gba_runs", "gba_rejected", "vi_solves", "vi_pts_trun
                  "peak_mem_mib_run")
 EVENTS = ("merges", "loops", "gba_runs", "gba_rejected", "gba_aborted", "kf_culled",
           "kf_outlier_culled", "kf_ingested")
+
+
+def umeyama(src: np.ndarray, dst: np.ndarray) -> tuple:
+    """(s, R, t) with dst ~ s R src + t (eval/ate.py's alignment)."""
+    from multi_orbslam3_tpu_torch.eval import ate
+    return ate.umeyama_align(src, dst, True)
 
 
 def _aligned_errors(pose, ts, seq, live=None):
@@ -82,7 +104,8 @@ def _count_inliers(client, log):
 
     def refine(feats, res):
         out = inner(feats, res)
-        fm = out.feat_mp.cpu().numpy()
+        fm = out.feat_mp
+        fm = fm.cpu().numpy() if isinstance(fm, torch.Tensor) else np.asarray(fm)
         fm = fm[fm >= 0]
         n_f = int(client._is_foreign_mp[fm].sum())
         log.append((slam.frame_id, int(len(fm) - n_f), n_f))
@@ -181,7 +204,7 @@ class GateCurve:
             self.sent_before_init = clients[0].stats["deltas_sent"]
         if i + 1 < self.first:
             return
-        gates, problems = cs.collab_inertial_gates(server, clients, seqs, i + 1,
+        gates, problems = _cs().collab_inertial_gates(server, clients, seqs, i + 1,
                                                    self.sent_before_init)
         self.rows.append({"frames": i + 1, "passed": not problems, **{k: gates.get(k) for k in (
             "imu_init_frame", "vi_ate_rmse", "span", "tilt_mean_deg", "tilt_head_deg",
@@ -189,36 +212,77 @@ class GateCurve:
 
 
 def kf_snapshot(m):
-    """Host copies of a map's keyframe validity, owner, timestamp, pose."""
+    """Host copies of a map's keyframe validity, owner, timestamp, pose (a
+    map of either package)."""
+    d = dict(valid=m.kf_valid, agent=m.kf_agent, ts=m.kf_timestamp, pose=m.kf_pose)
+    if not isinstance(m.kf_valid, torch.Tensor):
+        return {k: np.asarray(v) for k, v in d.items()}
     from multi_orbslam3_tpu_torch.collab.host import fetch
-    return fetch(dict(valid=m.kf_valid, agent=m.kf_agent, ts=m.kf_timestamp,
-                      pose=m.kf_pose))
+    return fetch(d)
 
 
-def run_mode(n, deterministic, trace_dir, tag, inertial=False, frames=None):
+# mode -> (the server's deterministic flag, torch's deterministic algorithms)
+MODES = {"free": (False, False), "fixed": (True, False), "det": (True, True)}
+
+
+def run_mode(n, mode, trace_dir, tag, inertial=False, frames=None, seed=31,
+             record_dir=None, dump_dir=None):
+    """n runs of one mode: "free" (free-running), "fixed" (the server's
+    deterministic flag: the GBA's schedule fixed, float atomics free) or
+    "det" (the flag under chip_smoke.reproducible)."""
     runs, failures = [], []
+    cs = _cs()
+    flag, repro = MODES[mode]
     phase = cs.phase_collab_inertial if inertial else cs.phase_collab
     kw = {} if frames is None else {"n_frames": frames}
+    if not inertial:
+        kw["seed"] = seed
     for i in range(n):
         tr = Trace() if trace_dir else None
+        if record_dir and not inertial:
+            import collab_merge_record
+            from multi_orbslam3_tpu_torch.pipeline import loop_closing
+            on_merge = None
+            if dump_dir and i == 0:
+                import collab_merge_replay
+                on_merge = collab_merge_replay.Dumper(dump_dir, seed)
+            tr = collab_merge_record.MergeRecord(loop_closing, on_merge=on_merge)
         curve = GateCurve(inner=tr) if inertial else None
-        ctx = cs.reproducible() if deterministic else contextlib.nullcontext()
+        ctx = cs.reproducible() if repro else contextlib.nullcontext()
         try:
             with ctx:
-                res, _ = phase(deterministic=deterministic, on_cycle=curve or tr, **kw)
+                res, _ = phase(deterministic=flag, on_cycle=curve or tr, **kw)
         except AssertionError as e:
             failures.append(f"run {i}: {e}")
             res = getattr(e, "res", None)       # a failed gate keeps its numbers
-        if tr is not None:
+        failed = any(f.startswith(f"run {i}:") for f in failures)
+        if record_dir and not inertial:
+            os.makedirs(record_dir, exist_ok=True)
+            ate_failed = [a for a in ("agent0", "agent1") if res is None
+                          or not res[a].get("ate_rmse", np.inf)
+                          < 0.02 * max(res[a].get("span", 1.0), 1.0)]
+            line = {"phase": "record", "mode": tag + mode, "seed": seed, "run": i,
+                    "failed": failed, "ate_failed": ate_failed,
+                    **{a: {k: (res or {}).get(a, {}).get(k) for k in (
+                        "frames_ok", "server_kfs", "ate_rmse", "span", "ate_over_span")}
+                       for a in ("agent0", "agent1")},
+                    **{k: (res or {}).get(k) for k in ("merges", "loops", "gba_runs",
+                                                       "gba_rejected", "gba_aborted",
+                                                       "wall_s")},
+                    "merge": tr.summary()}
+            with open(os.path.join(record_dir, f"collab_record_{tag}{mode}_s{seed}_{i}.json"),
+                      "w") as f:
+                json.dump({**line, "result": res, "record": tr.to_json()}, f, default=float)
+            print(json.dumps(line, default=float), flush=True)
+        elif tr is not None:
             os.makedirs(trace_dir, exist_ok=True)
-            with open(os.path.join(trace_dir, f"collab_trace_{tag}{i}.json"), "w") as f:
+            with open(os.path.join(trace_dir, f"collab_trace_{tag}{mode}{i}.json"), "w") as f:
                 json.dump({"cycles": tr.cycles, "final": tr.final}, f)
-            print(json.dumps({"phase": "trace", "mode": tag, "run": i,
-                              "failed": any(f.startswith(f"run {i}:") for f in failures),
+            print(json.dumps({"phase": "trace", "mode": tag + mode, "run": i, "failed": failed,
                               "jumps": tr.jumps(),
                               "live_drift": tr.first_live_drift()}), flush=True)
         if curve is not None:
-            print(json.dumps({"phase": "gate_curve", "mode": tag, "run": i,
+            print(json.dumps({"phase": "gate_curve", "mode": tag + mode, "run": i,
                               "first_passing": next((r["frames"] for r in curve.rows
                                                      if r["passed"]), None),
                               "rows": curve.rows}), flush=True)
@@ -228,23 +292,32 @@ def run_mode(n, deterministic, trace_dir, tag, inertial=False, frames=None):
     for a in () if inertial else ("agent0", "agent1"):
         for k in ("frames_ok", "server_kfs", "ate_rmse", "span", "ate_over_span"):
             spread[f"{a}.{k}"] = [r[a].get(k) for r in runs]
-    print(json.dumps({"phase": "spread", "mode": tag, "runs": len(runs),
+    print(json.dumps({"phase": "spread", "mode": tag + mode, "seed": seed, "runs": len(runs),
                       "drill": "collab_inertial" if inertial else "collab",
-                      "failures": failures, "reproducible": deterministic, **spread}),
-          flush=True)
+                      "failures": failures, "server_deterministic": flag,
+                      "reproducible": repro, **spread}), flush=True)
     return failures
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--runs", type=int, default=2)
+    ap.add_argument("--runs", type=int, default=2, help="free-running runs")
+    ap.add_argument("--fixed-runs", type=int, default=0,
+                    help="runs with the server's deterministic flag, float atomics free")
     ap.add_argument("--deterministic-runs", type=int, default=0)
+    ap.add_argument("--seeds", default="31", help="comma-separated sequence seeds (collab)")
     ap.add_argument("--kernels", action="store_true")
     ap.add_argument("--trace", default=None, metavar="DIR")
+    ap.add_argument("--record", default=None, metavar="DIR",
+                    help="the merge record of every run (collab_merge_record.py)")
+    ap.add_argument("--dump", default=None, metavar="DIR",
+                    help="dump the state at the first merge of the first "
+                         "deterministic run of the first seed (collab_merge_replay.py)")
     ap.add_argument("--inertial", action="store_true")
     ap.add_argument("--frames", type=int, default=None,
                     help="frames an agent (default: the phase's own)")
     args = ap.parse_args()
+    cs = _cs()
     card = cs.phase_device()
     cs.phase_build()
     if args.kernels:
@@ -252,9 +325,14 @@ def main() -> int:
         gen.manual_seed(0)
         cs.check_k2_arena(card, gen)
     tag = "inertial_" if args.inertial else ""
-    failures = run_mode(args.runs, False, args.trace, tag + "free", args.inertial, args.frames)
-    failures += run_mode(args.deterministic_runs, True, args.trace, tag + "det", args.inertial,
-                         args.frames)
+    failures = []
+    for j, seed in enumerate(int(x) for x in args.seeds.split(",")):
+        common = dict(inertial=args.inertial, frames=args.frames, seed=seed,
+                      record_dir=args.record)
+        failures += run_mode(args.runs, "free", args.trace, tag, **common)
+        failures += run_mode(args.fixed_runs, "fixed", args.trace, tag, **common)
+        failures += run_mode(args.deterministic_runs, "det", args.trace, tag,
+                             dump_dir=args.dump if j == 0 else None, **common)
     print(card["smi"], flush=True)
     return 1 if failures else 0
 
