@@ -20,14 +20,21 @@ failure:
      256 - 2 x the distance; the unpack is library_prep_ms): the library
      yardstick, which the port never calls;
    - K2's fused matches, which write no N x M: the validity-masked one
-     (both inner products, __popc and the 1-bit tensor-core MMA) at the
-     same three shapes, the projection-masked one at 16384x1024 and
-     1024x1024, on random descriptors with about 25% of rows and columns
-     invalid and on a tie case (every 7th descriptor duplicated, one
-     fully masked row and column); the inner products are also timed with
-     every row and column valid and, at 16384x16384, with about 4% valid
-     (the loop closer's masks); the matchers are checked to allocate no
-     N x M tensor;
+     (the compacted tensor-core search) at the same three shapes, the
+     projection-masked one (the grid-indexed window search) at 16384x1024
+     and 1024x1024, on random descriptors with about 25% of rows and
+     columns invalid and on a tie case (every 7th descriptor duplicated,
+     one fully masked row and column); both are also timed with every row
+     and column valid and the validity match, at 16384x16384, with about
+     4% valid (the loop closer's masks); then the edge cases, bit for bit
+     (check_k2_edges: pairs exactly on the radius at 16-px cell borders,
+     features outside the image and at NaN or inf, an infinite radius, a
+     level slack of every level, nothing or one thing valid, shapes off
+     the tiles, 4,608 columns and past one launch, ties across the
+     validity search's column splits); each matcher's device launches a
+     call, counted from a CUDA graph of one call, are printed and may not
+     exceed the parent design's (PARENT_DEVICE_LAUNCHES);
+     the matchers are checked to allocate no N x M tensor;
    - K2's stereo match (the row-band search) at 1024x1024 on random and
      tie cases, on pairs exactly on the row tolerance and the disparity
      limits, on ties that reach a row out of column order and on rows
@@ -44,7 +51,9 @@ failure:
    (bytes over 3.35 TB/s; Hamming distances on the tensor cores, 2 x 256
    int8 operations a pair at 1,979 TOP/s, for the pairs these inputs
    need; float add/multiply over 128 and min/max/compare over 64 a clock
-   an SM), with the limit that binds; K2's rows also carry popc_bound_ms,
+   an SM), with the limit that binds; the projection match's counts its
+   inputs, outputs and the pairs inside the windows, not the float tests
+   of the pairs a search discards; K2's rows also carry popc_bound_ms,
    the same bound with the distances counted by __popc (16 a clock an SM,
    8 a pair). library_ms is torch._int_mm's device time for the matrix
    and null for the rest: no PyTorch call computes a fused best-two match
@@ -53,7 +62,11 @@ failure:
    with loop closing on (the default) and the bundled k=10 L=5 vocabulary
    on the bench sequence (752x480, 120 frames, 1500 landmarks, seed 5,
    forward), driven like eval/benchmarks.py::_drive_mono (warm-up pass,
-   then a timed pass on a fresh system). Fails unless K1 was launched once
+   then a timed pass on a fresh system). The warm-up pass keeps the
+   inputs of the 60th coarse tracking call and of the first keyframe-pair
+   triangulation after it; right after the phase both fused matchers are
+   held bit for bit and timed on them (kernels_captured,
+   check_k2_captured). Fails unless K1 was launched once
    a frame and both fused K2 kernels were launched, at least 100 of 120
    frames track OK, ATE <= 0.02 x span and every adopted keyframe has a
    row in the loop closer's database. Prints loops, merges,
@@ -180,7 +193,7 @@ failure:
 
 The kernels phase also holds K2's fused matches at the collaborative
 arena's shapes: the validity match at 32768 x 32768 (about 4% and about
-75% valid, both inner products) and the projection match at 32768 x 1024.
+75% valid) and the projection match at 32768 x 1024.
 
 Kernel launch counts are reset just before each driven path (the timed
 passes of 3 and 4, 5 to 12, the benchmarks of 16 and each profiler of 17; the apps of 16
@@ -225,8 +238,7 @@ KERNELS = {
         "headline": "hamming_best_two_projection",
         "variants": {
             "hamming_matrix": "multi_orbslam3_tpu_torch/csrc/hamming_mma.cu",
-            "hamming_best_two_valid_popc": "multi_orbslam3_tpu_torch/csrc/hamming.cu",
-            "hamming_best_two_valid_mma": "multi_orbslam3_tpu_torch/csrc/hamming_mma.cu",
+            "hamming_best_two_valid": "multi_orbslam3_tpu_torch/csrc/hamming_mma.cu",
             "hamming_best_two_projection": "multi_orbslam3_tpu_torch/csrc/hamming.cu",
             "hamming_best_two_stereo": "multi_orbslam3_tpu_torch/csrc/stereo_band.cu"}},
 }
@@ -289,6 +301,93 @@ def reproducible():
         yield
     finally:
         torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
+
+# K2's inputs captured in the slice's warm-up pass, for check_k2_captured
+CAPTURED = {}
+# frames a K2 call site is not read from: the wrappers, the matcher, K2Capture
+_K2_SKIP = ("frontend/kernels.py", "frontend/matcher.py", "chip_smoke.py")
+
+
+def k2_call_site(depth: int = 2) -> tuple:
+    """(file:line, function, frame) of the first frame outside the kernels
+    module, the matcher and this script."""
+    f = sys._getframe(depth)
+    while f is not None and any(f.f_code.co_filename.endswith(s) for s in _K2_SKIP):
+        f = f.f_back
+    if f is None:
+        return "?", "?", None
+    rel = f.f_code.co_filename.split("multi_orbslam3_tpu_torch/")[-1]
+    return f"{rel}:{f.f_lineno}", f.f_code.co_name, f
+
+
+class K2Capture:
+    """Wraps kernels.hamming_best_two_projection and
+    kernels.hamming_best_two_valid (the matcher calls them through the
+    module) and keeps, in `cases`, clones of the arguments of the
+    `track_call`-th coarse tracking call (tracking's _match_and_invert with
+    level_slack 2) and of the first keyframe-pair triangulation
+    (local_mapping.triangulate_pair) after it with a valid row and column.
+    Every call is also passed to `seen` (profiling/k2_matcher_shapes.py
+    records there). The wrapped functions' results are returned unchanged."""
+
+    NAMES = ("hamming_best_two_projection", "hamming_best_two_valid")
+
+    def __init__(self, capture: bool = True, track_call: int = 60):
+        self.capture, self.track_call = capture, track_call
+        self.cases = {}
+        self._coarse = 0
+        self._orig = {}
+
+    def __enter__(self):
+        import inspect
+        from multi_orbslam3_tpu_torch.frontend import kernels
+        for name in self.NAMES:
+            fn = getattr(kernels, name)
+            self._orig[name] = fn
+            setattr(kernels, name, self._wrap(name, fn, inspect.signature(fn)))
+        return self
+
+    def __exit__(self, *exc):
+        from multi_orbslam3_tpu_torch.frontend import kernels
+        for name, fn in self._orig.items():
+            setattr(kernels, name, fn)
+        return False
+
+    def seen(self, name: str, site: str, func: str, args: dict) -> None:
+        """One call of `name` from `site` (in `func`) with `args`."""
+
+    def _wrap(self, name, fn, sig):
+        def wrapped(*args, **kw):
+            site, func, frame = k2_call_site()
+            c = sig.bind(*args, **kw).arguments
+            if self.capture:
+                self._maybe_capture(name, func, frame, c)
+            self.seen(name, site, func, c)
+            return fn(*args, **kw)
+        return wrapped
+
+    def _maybe_capture(self, name, func, frame, c):
+        clone = lambda c: {k: (v.detach().clone() if isinstance(v, torch.Tensor) else v)
+                           for k, v in c.items()}
+        if name == "hamming_best_two_projection" and func == "_match_and_invert" \
+                and frame.f_locals.get("level_slack") == 2:
+            self._coarse += 1
+            if self._coarse == self.track_call and "tracking_coarse" not in self.cases:
+                self.cases["tracking_coarse"] = clone(c)
+        if name == "hamming_best_two_valid" and func == "triangulate_pair" \
+                and "tracking_coarse" in self.cases and "triangulation" not in self.cases \
+                and int(c["valid1"].sum()) > 0 and int(c["valid2"].sum()) > 0:
+            self.cases["triangulation"] = clone(c)
+
+
+def profiling_module(name: str):
+    """Import one of the repo's profiling/ scripts as a module."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "profiling")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    import importlib
+    return importlib.import_module(name)
 
 
 class StageTimes:
@@ -716,15 +815,98 @@ def check_k2_matrix(cfg, card: dict, gen) -> dict:
 
 
 
+# Device launches a call (kernels, memcpys, memsets) of each fused matcher
+# in the parent's design, the ceiling matcher_row holds the new design to
+# (profiling/k2_matchers_ab.py measures both designs' counts; PERF.md
+# section 6): the validity match filled its column keys, ran its walk and
+# took the keys' low words; the projection match was one walk.
+PARENT_DEVICE_LAUNCHES = {"hamming_best_two_valid": 3, "hamming_best_two_projection": 1}
+# the kernels of each matcher as torch.profiler names them (a substring of
+# each), and how many of them a call launches (up to PROJ_CHUNK columns)
+MATCHER_KERNELS = {"hamming_best_two_valid": ("valid_compact", 2),
+                   "hamming_best_two_projection": ("proj_grid_kernel", 1)}
+
+
+def window_pairs(c: dict) -> float:
+    """The pairs a projection match's inputs need: both valid, inside the
+    radius and the level window (the plain mask, counted in row blocks)."""
+    n = c["proj_uv"].shape[0]
+    r = c["radius"]
+    r = r.expand(n) if isinstance(r, torch.Tensor) else torch.full(
+        (n,), float(r), device=c["proj_uv"].device)
+    total = 0
+    for r0 in range(0, n, 4096):
+        sl = slice(r0, r0 + 4096)
+        d2 = torch.sum((c["proj_uv"][sl, None, :] - c["feat_uv"][None, :, :]) ** 2, dim=-1)
+        total += int(((d2 <= r[sl, None] ** 2)
+                      & ((c["feat_level"][None, :] - c["pred_level"][sl, None]).abs()
+                         <= c["level_slack"])
+                      & c["proj_valid"][sl, None] & c["feat_valid"][None, :]).sum())
+    return float(total)
+
+
+def projection_bound(card: dict, c: dict) -> dict:
+    """The projection match's bound: what its inputs need read once (every
+    row's and column's 1-byte flag; of the valid rows only, the 32-byte
+    descriptor, the position, the predicted level and the radius, or one
+    radius for all rows; of the valid columns only, descriptor, position
+    and level), its outputs written once (16 bytes a row) and the
+    distances of the pairs inside the windows. An invalid row or column
+    needs its flag alone, and the float tests of the pairs a search
+    discards are the implementation's work, not the inputs' (the earlier
+    all-pairs walk's bound counted them)."""
+    n, m = c["proj_uv"].shape[0], c["feat_uv"].shape[0]
+    nv, mv = float(c["proj_valid"].sum()), float(c["feat_valid"].sum())
+    r = c["radius"]
+    per_row = isinstance(r, torch.Tensor) and r.numel() == n
+    row_bytes = 32.0 + 8.0 + 4.0 + (4.0 if per_row else 0.0)
+    nbytes = n + m + nv * row_bytes + (0.0 if per_row else 4.0) + mv * 44.0 + 16.0 * n
+    return bound(card, nbytes, hamming_pairs=window_pairs(c))
+
+
+def valid_bound(card: dict, v1: torch.Tensor, v2: torch.Tensor) -> dict:
+    """The validity match's bound: every row's and column's flag read once,
+    the 32-byte descriptors of the valid ones only, the outputs written
+    once (idx, best and second a row: 16 bytes; the argmin row a column:
+    8) and the distances of the valid pairs."""
+    n, m = v1.shape[0], v2.shape[0]
+    nv, mv = float(v1.sum()), float(v2.sum())
+    return bound(card, n + m + 32.0 * (nv + mv) + 16.0 * n + 8.0 * m, hamming_pairs=nv * mv)
+
+
+def matcher_row(card: dict, name: str, fn, plain, shape, inputs: str, b: dict,
+                launches: int = 50, **extra) -> dict:
+    """One timed row of a fused matcher: device_ms (its kernels' own time,
+    torch.profiler), call_device_ms (a call replayed from a CUDA graph: the
+    wrapper's small ops and the gaps between launches included, the host
+    not), device_launches a call (the nodes of a CUDA graph of one call,
+    which no lost profiler event can hide; it fails above the parent
+    design's count), call_ms and plain_ms."""
+    from multi_orbslam3_tpu_torch.profiling import common
+    kname, per_call = MATCHER_KERNELS[name]
+    ms, how = device_ms(fn, kname, launches=launches, per_call=per_call)
+    n_dev = common.graph_launches(fn, torch.device("cuda"))
+    if not n_dev or n_dev > PARENT_DEVICE_LAUNCHES[name]:
+        raise AssertionError(f"{name} {shape} ({inputs}): {n_dev} device launches a call; "
+                             f"the parent's design issued {PARENT_DEVICE_LAUNCHES[name]}")
+    return {"shape": list(shape), "inputs": inputs, "max_abs_err": 0.0, "device_ms": ms,
+            "device_ms_from": how,
+            "call_device_ms": graph_ms(fn, launches),
+            "device_launches": n_dev,
+            "call_ms": call_ms(fn, reps=5),
+            "plain_ms": plain() if plain is not None else None,
+            "library_ms": None, **b, **extra}
+
+
 def check_k2_fused(cfg, card: dict, gen) -> dict:
-    """K2's fused matches: exactness on random and tie cases, then times."""
+    """K2's fused matches: exactness on random and tie cases, then times.
+    Both are held bit for bit to their plain versions."""
     from multi_orbslam3_tpu_torch.frontend import kernels
     dev = torch.device("cuda")
     shapes = k2_shapes(cfg)
     P = cfg.map.max_mappoints
     W, H = cfg.camera.width, cfg.camera.height
-    valid_rows = {"popc": [], "mma": []}
-    proj_rows = []
+    valid_rows, proj_rows = [], []
     for n, m in shapes:
         block = 2048 if n * m > 2 ** 26 else None     # bounds the plain version's memory
         for kind in ("random", "ties", "full") + (("sparse",) if n == m == P else ()):
@@ -732,24 +914,18 @@ def check_k2_fused(cfg, card: dict, gen) -> dict:
             d1, v1, d2, v2 = case["valid"]
             want = kernels.hamming_best_two_valid_ref(d1, v1, d2, v2, row_block=block)
             n_valid = float(v1.sum()) * float(v2.sum())
-            for inner in ("popc", "mma"):
-                fn = lambda: kernels.hamming_best_two_valid(d1, v1, d2, v2, inner=inner)
-                got = fn()
-                torch.cuda.synchronize()
-                require_equal(f"K2 valid/{inner} {n}x{m} ({kind})", got, want)
-                if kind == "ties":
-                    continue
-                ms, how = device_ms(fn, f"best_two_{inner}_kernel",
-                                    launches=50 if n * m <= 2 ** 26 else 10)
-                io_bytes = 33.0 * (n + m) + 16.0 * n + 24.0 * m
-                valid_rows[inner].append({
-                    "shape": [n, m], "inputs": kind, "valid_pairs": n_valid,
-                    "max_abs_err": 0.0, "device_ms": ms, "device_ms_from": how,
-                    "call_ms": call_ms(fn, reps=5),
-                    "plain_ms": (call_ms(lambda: kernels.hamming_best_two_valid_ref(
-                        d1, v1, d2, v2, row_block=block), reps=3, warmup=1)
-                        if kind == "random" else None),
-                    "library_ms": None, **bound(card, io_bytes, hamming_pairs=n_valid)})
+            fn = lambda: kernels.hamming_best_two_valid(d1, v1, d2, v2)
+            got = fn()
+            torch.cuda.synchronize()
+            require_equal(f"K2 valid {n}x{m} ({kind})", got, want)
+            if kind != "ties":
+                plain = ((lambda: call_ms(lambda: kernels.hamming_best_two_valid_ref(
+                    d1, v1, d2, v2, row_block=block), reps=3, warmup=1))
+                    if kind == "random" else None)
+                valid_rows.append(matcher_row(
+                    card, "hamming_best_two_valid", fn, plain, (n, m), kind,
+                    valid_bound(card, v1, v2),
+                    launches=50 if n * m <= 2 ** 26 else 10, valid_pairs=n_valid))
             if n * m > 2 ** 26:
                 continue                      # no projection match at map x map
             c = case["projection"]
@@ -763,32 +939,201 @@ def check_k2_fused(cfg, card: dict, gen) -> dict:
                 raise AssertionError(f"K2 projection {n}x{m} ({kind}): nothing in any window")
             if kind == "ties":
                 continue
-            # pairs that pass the window, from the plain mask
-            d2p = torch.sum((c["proj_uv"][:, None, :] - c["feat_uv"][None, :, :]) ** 2, dim=-1)
-            passing = float(((d2p <= c["radius"][:, None] ** 2)
-                             & ((c["feat_level"][None, :] - c["pred_level"][:, None]).abs() <= 1)
-                             & c["proj_valid"][:, None] & c["feat_valid"][None, :]).sum())
-            del d2p
-            ms, how = device_ms(pfn, "best_two_popc_kernel")
-            proj_rows.append({
-                "shape": [n, m], "inputs": kind, "valid_pairs": n_valid,
-                "window_pairs": passing, "rows_matched": matched, "max_abs_err": 0.0,
-                "device_ms": ms, "device_ms_from": how, "call_ms": call_ms(pfn),
-                "plain_ms": call_ms(lambda: kernels.hamming_best_two_projection_ref(**c),
-                                    reps=5),
-                "library_ms": None,
-                # a valid pair: 2 sub, 2 mul, 1 add, 1 compare
-                **bound(card, 49.0 * n + 45.0 * m + 16.0 * n, hamming_pairs=passing,
-                        fp32_instr=5.0 * n_valid, minmax_instr=n_valid)})
-    emit("kernel_hamming_best_two_valid", exact=True, popc=valid_rows["popc"],
-         mma=valid_rows["mma"])
+            proj_rows.append(matcher_row(
+                card, "hamming_best_two_projection", pfn,
+                lambda: call_ms(lambda: kernels.hamming_best_two_projection_ref(**c), reps=5),
+                (n, m), kind, projection_bound(card, c), valid_pairs=n_valid,
+                window_pairs=window_pairs(c), rows_matched=matched))
+    emit("kernel_hamming_best_two_valid", exact=True, shapes=valid_rows)
     emit("kernel_hamming_best_two_projection", exact=True, shapes=proj_rows)
-    rows = {f"hamming_best_two_valid_{inner}": dict(valid_rows[inner][0],
-                                                    shapes=valid_rows[inner])
-            for inner in ("popc", "mma")}
-    rows["hamming_best_two_projection"] = dict(proj_rows[0], shapes=proj_rows)
-    return rows
+    return {"hamming_best_two_valid": dict(valid_rows[0], shapes=valid_rows),
+            "hamming_best_two_projection": dict(proj_rows[0], shapes=proj_rows)}
 
+
+PROJ_EDGE_KINDS = ("cell_borders", "outside_nan_inf", "inf_radius", "slack_all",
+                   "all_invalid", "one_row", "one_col", "off_tiles", "m4608", "past_launch")
+VALID_EDGE_KINDS = ("all_invalid", "one_row", "one_col", "off_tiles", "ties_across_splits")
+# ties_across_splits: rows in several row tiles, columns in several splits
+VALID_TIE_ROWS, VALID_TIE_COLS = (10, 300, 640, 1000), (3, 250, 520, 777, 1000)
+
+
+def proj_edge_shape(kind: str) -> tuple:
+    """(n, m) of a projection edge case: "off_tiles" 16,385 x 1,023
+    (neither a multiple of a block's rows nor its threads), "m4608"
+    stereo_wide's features (one launch), "past_launch" PROJ_CHUNK + 5
+    columns (two launches); the others 16,384 x 1,024."""
+    from multi_orbslam3_tpu_torch.frontend import kernels
+    return {"off_tiles": (16385, 1023), "m4608": (4000, 4608),
+            "past_launch": (2000, kernels.PROJ_CHUNK + 5)}.get(kind, (16384, 1024))
+
+
+def proj_edge_case(kind: str, base: dict) -> dict:
+    """A projection match's edge case made from `base`, the keyword
+    arguments of a case at proj_edge_shape(kind) with an (n,) radius
+    (cloned here, not changed): "cell_borders", pairs exactly on the radius (2.5, 3, 4, 15,
+    16 px) from features on 16-px cell borders, and one float32 step
+    beyond; "outside_nan_inf", features left of and below the image, a
+    hair below 0, at 2^20, +-inf and NaN, and rows at NaN, inf and far
+    out; "inf_radius", every third row with an infinite radius and
+    features at infinity; "slack_all", the loop closer's level slack of
+    every level; "all_invalid", "one_row", "one_col"; the shape kinds
+    leave the base as it is. The card tests build theirs here too."""
+    c = {k: (v.clone() if isinstance(v, torch.Tensor) else v) for k, v in base.items()}
+    n, m = c["mp_desc"].shape[0], c["feat_desc"].shape[0]
+    dev = c["mp_desc"].device
+    inf, nan = float("inf"), float("nan")
+    if kind == "cell_borders":
+        k = torch.arange(n, device=dev)
+        c["feat_uv"] = torch.stack([16.0 * (k[:m] % 40) + 16.0,
+                                    16.0 * (k[:m] % 25)], 1).float().contiguous()
+        src = k % m
+        r = torch.tensor([2.5, 3.0, 4.0, 15.0, 16.0], device=dev)[k % 5]
+        c["radius"] = r
+        uv = c["feat_uv"][src] + torch.stack([r, torch.zeros_like(r)], 1)
+        uv[1::7, 0] = torch.nextafter(uv[1::7, 0], torch.full_like(uv[1::7, 0], inf))
+        c["proj_uv"] = uv.contiguous()
+        c["mp_desc"] = c["feat_desc"][src].clone()
+        c["pred_level"] = c["feat_level"][src].clone()
+        c["proj_valid"][:] = True
+        c["feat_valid"][:] = True
+    elif kind == "outside_nan_inf":
+        c["feat_uv"][:8] = torch.tensor([[-50.0, 30.0], [400.0, 620.0], [-1e-8, 5.0],
+                                         [2.0 ** 20, 1.0], [inf, 3.0], [-inf, 3.0],
+                                         [nan, 4.0], [5.0, nan]], device=dev)
+        c["feat_valid"][:8] = True
+        c["proj_uv"][:3] = torch.tensor([[nan, 3.0], [inf, 3.0], [3e6, 3.0]], device=dev)
+        c["proj_valid"][:3] = True
+    elif kind == "inf_radius":
+        c["radius"][::3] = inf
+        c["feat_uv"][:2] = torch.tensor([[inf, 2.0], [3.0, -inf]], device=dev)
+        c["feat_valid"][:2] = True
+    elif kind == "slack_all":
+        c["level_slack"] = 8
+    elif kind == "all_invalid":
+        c["proj_valid"][:] = False
+    elif kind == "one_row":
+        c["proj_valid"][:] = False
+        c["proj_valid"][777] = True
+    elif kind == "one_col":
+        c["feat_valid"][:] = False
+        c["feat_valid"][m - 1] = True
+    return c
+
+
+def valid_edge_shape(kind: str) -> tuple:
+    """(n, m) of a validity edge case: "off_tiles" 1,025 x 1,031, else 1,024^2."""
+    return (1025, 1031) if kind == "off_tiles" else (1024, 1024)
+
+
+def valid_edge_case(kind: str, d1, v1, d2, v2) -> tuple:
+    """A validity match's edge case made from a base case at
+    valid_edge_shape(kind) (cloned here, not changed): "all_invalid"; "one_row",
+    the last row alone valid; "one_col", the first column alone;
+    "ties_across_splits", one descriptor in the rows VALID_TIE_ROWS and the
+    columns VALID_TIE_COLS (each such row must take column 3 and each such
+    column row 10: the (distance, index) rule across row tiles and column
+    splits). Other kinds leave the base as it is."""
+    d1, v1, d2, v2 = (t.clone() for t in (d1, v1, d2, v2))
+    if kind == "all_invalid":
+        v1[:] = False
+    elif kind == "one_row":
+        v1[:] = False
+        v1[-1] = True
+    elif kind == "one_col":
+        v2[:] = False
+        v2[0] = True
+    elif kind == "ties_across_splits":
+        rows = torch.tensor(VALID_TIE_ROWS, device=d1.device)
+        cols = torch.tensor(VALID_TIE_COLS, device=d1.device)
+        v1[rows] = True
+        v2[cols] = True
+        d2[cols] = d2[VALID_TIE_COLS[0]].clone()
+        d1[rows] = d2[VALID_TIE_COLS[0]].clone()
+    return d1, v1, d2, v2
+
+
+def valid_ties_hold(got) -> bool:
+    """ties_across_splits: the tied rows took the first tied column, and
+    the tied columns the first tied row."""
+    return bool((got[0][list(VALID_TIE_ROWS)] == VALID_TIE_COLS[0]).all()
+                and (got[3][list(VALID_TIE_COLS)] == VALID_TIE_ROWS[0]).all())
+
+
+def check_k2_edges(gen) -> None:
+    """Both fused matchers bit for bit against their plain versions on the
+    edge cases of proj_edge_case and valid_edge_case. The projection match
+    is one launch up to PROJ_CHUNK columns."""
+    from multi_orbslam3_tpu_torch.frontend import kernels
+    dev = torch.device("cuda")
+    checked = []
+    for kind in PROJ_EDGE_KINDS:
+        n, m = proj_edge_shape(kind)
+        c = proj_edge_case(kind, match_case(n, m, gen, dev, "ties", 752, 480)["projection"])
+        before = kernels.launch_counts()["hamming_best_two_projection"]
+        got = kernels.hamming_best_two_projection(**c)
+        torch.cuda.synchronize()
+        per_call = kernels.launch_counts()["hamming_best_two_projection"] - before
+        if per_call != len(kernels.projection_chunks(m)):
+            raise AssertionError(f"K2 projection ({kind}): {per_call} launches")
+        require_equal(f"K2 projection ({kind})", got, kernels.hamming_best_two_projection_ref(**c))
+        if kind == "cell_borders" and int((got[1] == 0).sum()) < 10000:
+            raise AssertionError("K2 projection: pairs on the radius were not matched")
+        checked.append({"kernel": "projection", "inputs": kind, "shape": [n, m],
+                        "launches_per_call": per_call,
+                        "rows_matched": int((got[1] < kernels.BIG).sum())})
+    for kind in VALID_EDGE_KINDS:
+        n, m = valid_edge_shape(kind)
+        d1, v1, d2, v2 = valid_edge_case(
+            kind, *match_case(n, m, gen, dev, "ties", 752, 480)["valid"])
+        got = kernels.hamming_best_two_valid(d1, v1, d2, v2)
+        torch.cuda.synchronize()
+        require_equal(f"K2 valid ({kind})", got, kernels.hamming_best_two_valid_ref(d1, v1, d2, v2))
+        if kind == "ties_across_splits" and not valid_ties_hold(got):
+            raise AssertionError("K2 valid: the tied rows and columns did not take the first")
+        checked.append({"kernel": "valid", "inputs": kind, "shape": [n, m],
+                        "rows_matched": int((got[1] < kernels.BIG).sum())})
+    emit("kernel_k2_edge_cases", exact=True, cases=checked)
+
+
+def check_k2_captured(card: dict, cases: dict) -> dict:
+    """Both fused matchers on inputs the slice's warm-up pass gave them
+    (K2Capture): the 60th coarse tracking call
+    (16,384 landmarks x 1,024 features, features clustered as a real frame
+    has them) and the first keyframe-pair triangulation after it; bit for
+    bit against the plain versions, timed, with their bounds."""
+    from multi_orbslam3_tpu_torch.frontend import kernels
+    rows = {}
+    if set(cases) != {"tracking_coarse", "triangulation"}:
+        raise AssertionError(f"the slice's warm-up pass captured {sorted(cases)}")
+    c = cases["tracking_coarse"]
+    pfn = lambda: kernels.hamming_best_two_projection(**c)
+    got = pfn()
+    torch.cuda.synchronize()
+    require_equal("K2 projection (captured tracking call)", got,
+                  kernels.hamming_best_two_projection_ref(**c))
+    n, m = c["mp_desc"].shape[0], c["feat_desc"].shape[0]
+    rows["hamming_best_two_projection"] = [matcher_row(
+        card, "hamming_best_two_projection", pfn,
+        lambda: call_ms(lambda: kernels.hamming_best_two_projection_ref(**c), reps=5),
+        (n, m), "captured: coarse tracking, frame 60", projection_bound(card, c),
+        valid_pairs=float(c["proj_valid"].sum()) * float(c["feat_valid"].sum()),
+        window_pairs=window_pairs(c), rows_matched=int((got[1] < kernels.BIG).sum()))]
+    t = cases["triangulation"]
+    vfn = lambda: kernels.hamming_best_two_valid(**t)
+    got = vfn()
+    torch.cuda.synchronize()
+    require_equal("K2 valid (captured triangulation call)", got,
+                  kernels.hamming_best_two_valid_ref(**t))
+    n, m = t["d1"].shape[0], t["d2"].shape[0]
+    n_valid = float(t["valid1"].sum()) * float(t["valid2"].sum())
+    rows["hamming_best_two_valid"] = [matcher_row(
+        card, "hamming_best_two_valid", vfn,
+        lambda: call_ms(lambda: kernels.hamming_best_two_valid_ref(**t), reps=5),
+        (n, m), "captured: keyframe-pair triangulation",
+        valid_bound(card, t["valid1"], t["valid2"]),
+        valid_pairs=n_valid)]
+    emit("kernel_k2_captured", exact=True, **rows)
+    return rows
 
 
 def stereo_case(n: int, m: int, gen, dev, kind: str, width: int, height: int) -> dict:
@@ -972,18 +1317,17 @@ def check_k2_arena(card: dict, gen, n_agents: int = 2) -> dict:
     synthetic_mono config, 2 agents: 32768 landmarks, 1024 features): the
     validity match at 32768 x 32768, as the verification cascade's
     match_loop_landmarks runs it, with about 4% valid (the cascade's
-    region masks) and about 75% valid, both inner products; the
-    projection match at 32768 x 1024, as the arena fuse runs it. The plain
-    validity version goes 2048 rows at a time (a full 32768^2 int32 matrix
-    is 4 GiB) and every case is freed before the next."""
+    region masks) and about 75% valid; the projection match at 32768 x
+    1024, as the arena fuse runs it. The plain validity version goes 2048
+    rows at a time (a full 32768^2 int32 matrix is 4 GiB) and every case is
+    freed before the next."""
     from multi_orbslam3_tpu_torch import config as cfgm
     from multi_orbslam3_tpu_torch.frontend import kernels
     dev = torch.device("cuda")
     c = cfgm.synthetic_mono()
     P, n_feat = c.map.max_mappoints * n_agents, c.orb.n_features
     W, H = c.camera.width, c.camera.height
-    rows = {"hamming_best_two_valid_popc": [], "hamming_best_two_valid_mma": [],
-            "hamming_best_two_projection": []}
+    rows = {"hamming_best_two_valid": [], "hamming_best_two_projection": []}
     for kind in ("sparse", "random"):
         case = match_case(P, P, gen, dev, kind, W, H)
         d1, v1, d2, v2 = case["valid"]
@@ -993,18 +1337,15 @@ def check_k2_arena(card: dict, gen, n_agents: int = 2) -> dict:
         plain = call_ms(lambda: kernels.hamming_best_two_valid_ref(
             d1, v1, d2, v2, row_block=2048), reps=1, warmup=0)
         n_valid = float(v1.sum()) * float(v2.sum())
-        for inner in ("popc", "mma"):
-            fn = lambda: kernels.hamming_best_two_valid(d1, v1, d2, v2, inner=inner)
-            got = fn()
-            torch.cuda.synchronize()
-            require_equal(f"K2 valid/{inner} {P}x{P} ({kind})", got, want)
-            ms, how = device_ms(fn, f"best_two_{inner}_kernel", launches=5)
-            rows[f"hamming_best_two_valid_{inner}"].append({
-                "shape": [P, P], "inputs": kind, "valid_pairs": n_valid,
-                "max_abs_err": 0.0, "device_ms": ms, "device_ms_from": how,
-                "call_ms": call_ms(fn, reps=3), "plain_ms": plain, "library_ms": None,
-                **bound(card, 33.0 * (P + P) + 16.0 * P + 24.0 * P, hamming_pairs=n_valid)})
-        del want, d1, v1, d2, v2
+        fn = lambda: kernels.hamming_best_two_valid(d1, v1, d2, v2)
+        got = fn()
+        torch.cuda.synchronize()
+        require_equal(f"K2 valid {P}x{P} ({kind})", got, want)
+        rows["hamming_best_two_valid"].append(matcher_row(
+            card, "hamming_best_two_valid", fn, lambda: plain, (P, P), kind,
+            valid_bound(card, v1, v2),
+            launches=5, valid_pairs=n_valid))
+        del want, got, d1, v1, d2, v2
         torch.cuda.empty_cache()
     c_p = match_case(P, n_feat, gen, dev, "random", W, H)["projection"]
     pfn = lambda: kernels.hamming_best_two_projection(**c_p)
@@ -1012,21 +1353,12 @@ def check_k2_arena(card: dict, gen, n_agents: int = 2) -> dict:
     torch.cuda.synchronize()
     require_equal(f"K2 projection {P}x{n_feat}", got,
                   kernels.hamming_best_two_projection_ref(**c_p))
-    d2p = torch.sum((c_p["proj_uv"][:, None, :] - c_p["feat_uv"][None, :, :]) ** 2, dim=-1)
-    passing = float(((d2p <= c_p["radius"][:, None] ** 2)
-                     & ((c_p["feat_level"][None, :] - c_p["pred_level"][:, None]).abs() <= 1)
-                     & c_p["proj_valid"][:, None] & c_p["feat_valid"][None, :]).sum())
-    del d2p
     n_valid = float(c_p["proj_valid"].sum()) * float(c_p["feat_valid"].sum())
-    ms, how = device_ms(pfn, "best_two_popc_kernel")
-    rows["hamming_best_two_projection"].append({
-        "shape": [P, n_feat], "inputs": "random", "valid_pairs": n_valid,
-        "window_pairs": passing, "max_abs_err": 0.0, "device_ms": ms,
-        "device_ms_from": how, "call_ms": call_ms(pfn),
-        "plain_ms": call_ms(lambda: kernels.hamming_best_two_projection_ref(**c_p), reps=5),
-        "library_ms": None,
-        **bound(card, 49.0 * P + 45.0 * n_feat + 16.0 * P, hamming_pairs=passing,
-                fp32_instr=5.0 * n_valid, minmax_instr=n_valid)})
+    rows["hamming_best_two_projection"].append(matcher_row(
+        card, "hamming_best_two_projection", pfn,
+        lambda: call_ms(lambda: kernels.hamming_best_two_projection_ref(**c_p), reps=5),
+        (P, n_feat), "random", projection_bound(card, c_p), valid_pairs=n_valid,
+        window_pairs=window_pairs(c_p)))
     emit("kernel_hamming_arena_shapes", exact=True, **rows)
     return rows
 
@@ -1044,6 +1376,7 @@ def phase_kernels(frame: np.ndarray, frame_right: np.ndarray, cfg, card: dict) -
     rows.update(check_k2_stereo(cfg, card, gen))
     for name, arena in check_k2_arena(card, gen).items():
         rows[name]["arena_shapes"] = arena
+    check_k2_edges(gen)
     check_matcher_memory(cfg, gen)
     return rows
 
@@ -1054,13 +1387,16 @@ def sync(device: str) -> None:
 
 
 def drive_mono(cfg, seq, device: str, loop_closing: bool,
-               warmup: bool = True) -> tuple:
+               warmup: bool = True, warmup_ctx=None) -> tuple:
     """Warm-up pass, then a timed pass on a fresh system, as _drive_mono
-    does; the next frame's upload is issued before the current frame."""
+    does; the next frame's upload is issued before the current frame.
+    warmup_ctx: a context manager entered around the warm-up pass alone."""
     from multi_orbslam3_tpu_torch.frontend import kernels
     from multi_orbslam3_tpu_torch.pipeline.system import MonoSlam
     F = seq.images.shape[0]
     for timed in ((False, True) if warmup else (True,)):
+        ctx = warmup_ctx if (warmup_ctx is not None and not timed) else contextlib.nullcontext()
+        ctx.__enter__()
         slam = MonoSlam(cfg, enable_loop_closing=loop_closing, device=device)
         if timed:
             sync(device)
@@ -1078,6 +1414,7 @@ def drive_mono(cfg, seq, device: str, loop_closing: bool,
         slam.finish()
         sync(device)
         wall = time.perf_counter() - t0
+        ctx.__exit__(None, None, None)
     return slam, np.asarray(frame_ms), wall, kernels.launch_counts()
 
 
@@ -1172,7 +1509,7 @@ def check_launches(launches: dict, problems: list, k1_expected=None,
     if k1 <= 0 or (k1_expected is not None and k1 != k1_expected):
         problems.append(f"K1 was launched {k1} times on this path"
                         + (f", not {k1_expected}" if k1_expected is not None else ""))
-    valid = launches["hamming_best_two_valid_popc"] + launches["hamming_best_two_valid_mma"]
+    valid = launches["hamming_best_two_valid"]
     proj = launches["hamming_best_two_projection"]
     if valid + proj <= 0 or (both_fused and min(valid, proj) <= 0):
         problems.append(f"K2's fused matches were launched {valid} (validity) and "
@@ -1188,8 +1525,12 @@ def phase_slice(cfg, seq, loop_closing: bool, device: str = "cuda") -> tuple:
     start_phase()
     timer = (StageTimes(lcm, ["_pr_step", "verify_candidate_cascade"])
              if loop_closing else None)
+    # K2's real inputs, from the warm-up pass (check_k2_captured)
+    recorder = K2Capture() if loop_closing else None
     slam, frame_ms, wall, launches = drive_mono(cfg, seq, device, loop_closing,
-                                                warmup=loop_closing)
+                                                warmup=loop_closing, warmup_ctx=recorder)
+    if recorder is not None:
+        CAPTURED.update(recorder.cases)
     stages = timer.close() if timer else None
     F = seq.images.shape[0]
     states = [s for _, s in slam.frame_log]
@@ -1814,10 +2155,8 @@ def phase_collab(device: str = "cuda", n_frames: int = 150, config=None,
     warm_torch_func(device)
     record = None
     if on_cycle is None:
-        sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                        "profiling"))
-        import collab_merge_record
-        on_cycle = record = collab_merge_record.MergeRecord(lcm, cycles=False)
+        on_cycle = record = profiling_module("collab_merge_record").MergeRecord(
+            lcm, cycles=False)
     timer = StageTimes(lcm, ["verify_candidate_cascade", "correct_loop"])
     if record is not None:
         record.install(server, clients, seqs)   # inside the timer: closed first
@@ -1899,9 +2238,7 @@ def phase_collab(device: str = "cuda", n_frames: int = 150, config=None,
     if record is not None:
         res["merge_record"] = record.summary()
     check_launches(launches, problems, k1_expected=n_agents * F, stereo_expected=0)
-    valid = server_launches["hamming_best_two_valid_popc"] + \
-        server_launches["hamming_best_two_valid_mma"]
-    if valid <= 0:
+    if server_launches["hamming_best_two_valid"] <= 0:
         problems.append("the server's cascade launched no fused validity match")
     if server_launches["hamming_best_two_projection"] <= 0:
         problems.append("the server's arena fuse launched no fused projection match")
@@ -2505,6 +2842,9 @@ def main() -> int:
     rows = timed("kernels", phase_kernels, as_u8(stereo_seq.images[0]),
                  as_u8(stereo_seq.images_right[0]), cfg, card)
     res, slam = timed("slice", phase_slice, cfg, seq, loop_closing=True)
+    start_phase()
+    for name, cap in timed("kernels_captured", check_k2_captured, card, CAPTURED).items():
+        rows[name]["captured"] = cap
     res_off, _ = timed("slice_lc_off", phase_slice, cfg, seq, loop_closing=False)
     res_reloc = timed("relocalize", phase_relocalize, cfg, seq, slam)
     res_atlas = timed("atlas_loop", phase_atlas_loop)
@@ -2573,13 +2913,16 @@ def main() -> int:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "limit": r["limit"],
                 "library_ms": r.get("library_ms"),
-                **{k: r[k] for k in ("popc_bound_ms", "library", "library_prep_ms") if k in r},
+                **{k: r[k] for k in ("popc_bound_ms", "library", "library_prep_ms",
+                                     "call_device_ms", "device_launches") if k in r},
                 "card": card["smi"],
                 **{key: [{k: a[k] for k in (
                     "shape", "inputs", "launches_per_call", "device_ms", "call_ms",
-                    "plain_ms", "bound_ms", "bound_by", "limit", "popc_bound_ms") if k in a}
+                    "call_device_ms", "device_launches", "plain_ms", "bound_ms",
+                    "bound_by", "limit", "popc_bound_ms") if k in a}
                     for a in r[key]]
-                   for key in ("arena_shapes", "grouped", "chunked") if key in r},
+                   for key in ("arena_shapes", "captured", "grouped", "chunked")
+                   if key in r},
                 **({"bench_kernels": bench_rows[vname]} if vname in bench_rows else {})})
         head = next(v for v in variants if v["name"] == k["headline"])
         entries.append({**head, "name": name, "source": k["source"],

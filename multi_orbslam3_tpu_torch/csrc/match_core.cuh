@@ -1,9 +1,9 @@
-// Shared pieces of the Hamming kernels (hamming.cu: the __popc inner
-// product; hamming_mma.cu: the 1-bit tensor-core inner product and the
-// matrix writer; stereo_band.cu: the stereo row-band search): the argument
-// block, the 256-bit distance by __popc, the 1-bit MMA, the running
-// best/second statistics of a row and their merge, and the column-argmin
-// key.
+// Shared pieces of the Hamming kernels (hamming.cu: the projection match's
+// grid-indexed window search; hamming_mma.cu: the matrix writer and the
+// validity match's compacted tensor-core search; stereo_band.cu: the stereo
+// row-band search): the argument block, the 256-bit distance by __popc, the
+// 1-bit MMA, the running best/second statistics of a row and their merge,
+// and the column-argmin key.
 //
 // Semantics (frontend/kernels.py, hamming_best_two_*_ref): a masked pair
 // counts as BIG; idx is the first column with the row's minimum; second is
@@ -46,8 +46,9 @@ struct MatchArgs {
   int* best;                     // (n,)
   int* second;                   // (n,)
   // valid variant only: per-column (distance << 32 | row) keys, initialised
-  // by the caller to (BIG << 32 | 0); atomicMin leaves the first row with
-  // the column's minimum in the low word whatever the order of the blocks
+  // to (BIG << 32 | 0) before the search (hamming_mma.cu's pre-pass);
+  // atomicMin leaves the first row with the column's minimum in the low word
+  // whatever the order of the blocks
   unsigned long long* col_key;   // (m,)
 };
 

@@ -9,19 +9,28 @@
   (N, M) int32 Hamming distances, written tile by tile from the 1-bit
   tensor-core MMA by a persistent grid (``csrc/hamming_mma.cu``), and its
   fused forms, which mask and reduce in the kernel and never write N x M:
-  ``hamming_best_two_valid`` (row and column validity; per row the first
-  best column, best and second-best distance, per column the first best
-  row) and ``hamming_best_two_projection`` (validity, a per-row radius
-  around a projected position and a pyramid-level window; the row
-  results), both walking all columns (``csrc/hamming.cu``), and
-  ``hamming_best_two_stereo`` (validity, epipolar row, disparity range and
-  pyramid level between a left and a right feature set; the row results),
-  a row-band search over a per-row index of the right set built in shared
-  memory (``csrc/stereo_band.cu``; one launch for up to STEREO_CHUNK right
-  features, one a chunk of columns beyond, each seeded with the rows'
-  results so far). ``hamming_best_two_valid`` has two
-  inner products: ``__popc`` (``csrc/hamming.cu``) and the 1-bit
-  tensor-core MMA (``csrc/hamming_mma.cu``).
+  - ``hamming_best_two_valid`` (row and column validity; per row the first
+    best column, best and second-best distance, per column the first best
+    row): a compacted tensor-core search (``csrc/hamming_mma.cu``), a
+    pre-pass that lists the valid rows and columns, then the 1-bit MMA over
+    compacted row tiles x column stages staged by cp.async, the rows' column
+    splits merged on the device by the last block of a row tile;
+  - ``hamming_best_two_projection`` (validity, a per-row radius around a
+    projected position and a pyramid-level window; the row results): a
+    grid-indexed window search over a 16-px cell index of the columns built
+    in shared memory (``csrc/hamming.cu``; one launch for up to PROJ_CHUNK
+    columns, one a chunk of columns beyond, each seeded with the rows'
+    results so far);
+  - ``hamming_best_two_stereo`` (validity, epipolar row, disparity range and
+    pyramid level between a left and a right feature set; the row results):
+    a row-band search over a per-row index of the right set built in shared
+    memory (``csrc/stereo_band.cu``; chunks of STEREO_CHUNK as above).
+  Beside each search that visits columns out of column order, a CPU model
+  of its visit (``stereo_band_candidates``, ``projection_window_candidates``)
+  and of the search on it (``hamming_best_two_stereo_banded_ref``,
+  ``hamming_best_two_projection_gridded_ref``,
+  ``hamming_best_two_valid_compacted_ref``) holds the design to the plain
+  version in the CPU tests; no main path runs them.
 
 Dispatch is by the tensor's device only: a CPU tensor takes the plain
 PyTorch version, a CUDA tensor launches the kernel or raises. There is no
@@ -67,12 +76,21 @@ MAX_LEVELS = 16       # levels of one K1 launch (its table, csrc/fast_nms.cu)
 STEREO_CHUNK = 4096   # right features of one stereo launch (its index, csrc/stereo_band.cu)
 STEREO_MAX_BUCKETS = 2048   # image rows its index spans (the rest: overflow)
 STEREO_V_LIMIT = 2.0 ** 20  # |v| at or above this: the overflow bucket
+# the two matchers' design constants, as csrc/ sets them for the kernels
+# (tests/test_torch_k2_matchers.py holds each equal to its csrc/ value)
+PROJ_CHUNK = 8192     # columns of one projection launch (its index, csrc/hamming.cu)
+PROJ_CELL = 16.0      # px a side of the projection index's cells
+PROJ_MAX_CELLS = 4096  # cells the index spans (the rest: overflow)
+PROJ_LIMIT = 2.0 ** 20  # |u| or |v| at or above this: the overflow list
+VALID_ROWS = 128      # compacted rows a tile of the validity search (csrc/hamming_mma.cu)
+VALID_CHUNK = 128     # compacted columns a stage
+VALID_MAX_SPLITS = 8  # column splits of one row tile
 
 _lib_handle = None
 _lib_lock = threading.Lock()
 _LAUNCHES = {"fast_score_nms_levels": 0, "hamming_matrix": 0,
-             "hamming_best_two_valid_popc": 0, "hamming_best_two_valid_mma": 0,
-             "hamming_best_two_projection": 0, "hamming_best_two_stereo": 0}
+             "hamming_best_two_valid": 0, "hamming_best_two_projection": 0,
+             "hamming_best_two_stereo": 0}
 
 
 def _nvcc() -> str:
@@ -137,17 +155,16 @@ def _lib():
             fns = types.SimpleNamespace(
                 fast_score_nms_levels=fast_so.mo3_fast_score_nms_levels,
                 hamming_matrix=mma_so.mo3_hamming_matrix,
-                hamming_best_two_valid_popc=ham_so.mo3_hamming_best_two_valid,
-                hamming_best_two_valid_mma=mma_so.mo3_hamming_best_two_valid_mma,
+                hamming_best_two_valid=mma_so.mo3_hamming_best_two_valid,
                 hamming_best_two_projection=ham_so.mo3_hamming_best_two_projection,
                 hamming_best_two_stereo=band_so.mo3_hamming_best_two_stereo)
             fns.fast_score_nms_levels.argtypes = [vp, vp, vp, vp, ci, cf, vp]
             fns.hamming_matrix.argtypes = [vp, vp, vp, ci, ci, vp]
-            valid_args = [vp, vp, ci, vp, vp, ci, vp, vp, vp, vp, vp]
-            fns.hamming_best_two_valid_popc.argtypes = valid_args
-            fns.hamming_best_two_valid_mma.argtypes = valid_args
+            fns.hamming_best_two_valid.argtypes = [
+                vp, vp, ci, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
             fns.hamming_best_two_projection.argtypes = [
-                vp, vp, vp, vp, cf, vp, ci, vp, vp, vp, vp, ci, ci, vp, vp, vp, vp]
+                vp, vp, vp, vp, cf, vp, ci, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp,
+                vp]
             fns.hamming_best_two_stereo.argtypes = [
                 vp, vp, vp, vp, vp, ci, vp, vp, vp, vp, ci, ci, ci, cf, cf, ci,
                 vp, vp, vp, vp]
@@ -343,9 +360,76 @@ def hamming_best_two_valid_ref(d1: torch.Tensor, valid1: torch.Tensor,
     return idx, best, second, col_arg
 
 
+def valid_splits(row_tiles: int, chunks: int, grid: int) -> Tuple[int, int]:
+    """(stages a split, splits) of the validity search's row tiles, as
+    csrc/hamming_mma.cu chooses them on the device: the split count up to
+    VALID_MAX_SPLITS that minimises stages a split x waves of a persistent
+    grid of `grid` blocks (the fewest splits on a tie), then as many splits
+    as that stage count needs."""
+    best_s, best_cost = 1, None
+    for s in range(1, min(VALID_MAX_SPLITS, chunks) + 1):
+        cps = -(-chunks // s)
+        items = row_tiles * -(-chunks // cps)
+        cost = min(cps * -(-items // grid), (1 << 27) - 1)
+        if best_cost is None or cost < best_cost:
+            best_s, best_cost = s, cost
+    cps = -(-chunks // best_s)
+    return cps, -(-chunks // cps)
+
+
+def hamming_best_two_valid_compacted_ref(d1, valid1, d2, valid2, grid: int = 528):
+    """CPU model of csrc/hamming_mma.cu's validity search with a persistent
+    grid of `grid` blocks: the valid rows and columns compacted into
+    ascending lists; row tiles of VALID_ROWS compacted rows; the compacted
+    columns in stages of VALID_CHUNK, grouped into splits by valid_splits;
+    per (tile, split) each row's (best, column, second) over the split, the
+    columns ascending (the first on ties), and per column the least
+    (distance << 32 | row) key over the tile's rows, offered to a running
+    minimum as the kernel's atomicMin is; a row's splits merged by
+    stat_merge. The work items run last first and a row's splits merge
+    last first, the orders that a rule keeping the first one seen would get
+    wrong. Equal to hamming_best_two_valid_ref for every grid size."""
+    v1, v2 = valid1.cpu().numpy(), valid2.cpu().numpy()
+    n, m = v1.shape[0], v2.shape[0]
+    rows, cols = np.flatnonzero(v1), np.flatnonzero(v2)
+    idx = np.zeros(n, dtype=np.int64)
+    best = np.full(n, BIG, dtype=np.int32)
+    second = np.full(n, BIG, dtype=np.int32)
+    col_key = np.full(m, BIG << 32, dtype=np.int64)
+    if rows.size and cols.size:
+        dist = hamming_matrix_ref(d1.cpu()[torch.from_numpy(rows)],
+                                  d2.cpu()[torch.from_numpy(cols)]).numpy().astype(np.int64)
+        row_tiles = -(-rows.size // VALID_ROWS)
+        cps, splits = valid_splits(row_tiles, -(-cols.size // VALID_CHUNK), grid)
+        part = {}
+        for item in reversed(range(row_tiles * splits)):
+            rt, sp = divmod(item, splits)
+            r0, r1 = rt * VALID_ROWS, min(rows.size, (rt + 1) * VALID_ROWS)
+            c0, c1 = sp * cps * VALID_CHUNK, min(cols.size, (sp + 1) * cps * VALID_CHUNK)
+            block = dist[r0:r1, c0:c1]
+            arg = np.argmin(block, axis=1)                 # first position on ties
+            b = block[np.arange(r1 - r0), arg]
+            rest = block.copy()
+            rest[np.arange(r1 - r0), arg] = BIG
+            s_ = rest.min(axis=1) if block.shape[1] > 1 else np.full(r1 - r0, BIG)
+            for k in range(r1 - r0):
+                part.setdefault(r0 + k, []).append((int(b[k]), int(c0 + arg[k]), int(s_[k])))
+            keys = (block << 32) | rows[r0:r1, None]
+            np.minimum.at(col_key, cols[c0:c1], keys.min(axis=0))
+        for p, parts in part.items():
+            acc = (BIG, 0, BIG)
+            for q in parts:                                # last split first
+                acc = stat_merge(acc, q)
+            best[rows[p]], second[rows[p]] = acc[0], acc[2]
+            idx[rows[p]] = cols[acc[1]] if acc[0] < BIG else 0
+    dev = d1.device
+    return (torch.from_numpy(idx).to(dev), torch.from_numpy(best).to(dev),
+            torch.from_numpy(second).to(dev),
+            torch.from_numpy(col_key & 0xFFFFFFFF).to(dev))
+
+
 def hamming_best_two_valid(d1: torch.Tensor, valid1: torch.Tensor,
-                           d2: torch.Tensor, valid2: torch.Tensor,
-                           inner: Union[str, None] = None):
+                           d2: torch.Tensor, valid2: torch.Tensor):
     """Hamming match of (N, 8) against (M, 8) int32 descriptor words under
     the mask valid1[:, None] & valid2[None, :], a masked pair counting as
     BIG. Returns, per row, (idx int64: the first column with the minimum,
@@ -353,13 +437,11 @@ def hamming_best_two_valid(d1: torch.Tensor, valid1: torch.Tensor,
     per column argmin_row int64: the first row with the minimum. A row or
     column with nothing unmasked gives idx 0 and BIG.
 
-    CPU: plain version; CUDA: the fused kernel, which writes no N x M.
-    `inner` names its inner product. "popc" skips every invalid row and
-    column and is the faster on the masks the callers pass (sparse at map
-    x map) and at 1,024 x 1,024; "mma" (the 1-bit tensor-core product)
-    computes whole 16 x 8 tiles and is the faster only where most of a
-    large problem is valid. The masks live on the device, so the choice
-    cannot follow them without a read-back: left out, `inner` is "popc"."""
+    CPU: plain version; CUDA: the compacted tensor-core search
+    (csrc/hamming_mma.cu), which writes no N x M: a pre-pass lists the
+    valid rows and columns and initialises the outputs, the search runs the
+    1-bit MMA over the compacted pairs only; with the column keys' low
+    words taken as int64, three device launches a call and no read-back."""
     n, m = d1.shape[0], d2.shape[0]
     if n == 0 or m == 0:
         dev = d1.device
@@ -374,19 +456,23 @@ def hamming_best_two_valid(d1: torch.Tensor, valid1: torch.Tensor,
     _check_cuda(name, valid1, torch.bool, (n,))
     _check_cuda(name, d2, torch.int32, (m, 8))
     _check_cuda(name, valid2, torch.bool, (m,))
-    inner = inner or "popc"
-    if inner not in ("popc", "mma"):
-        raise ValueError(f'{name}: inner is "popc" or "mma", got {inner!r}')
     d1, d2 = _aligned16(d1), _aligned16(d2)
     dev = d1.device
     idx = torch.empty(n, dtype=torch.int64, device=dev)
     best = torch.empty(n, dtype=torch.int32, device=dev)
     second = torch.empty(n, dtype=torch.int32, device=dev)
-    # per-column (distance << 32 | row) keys for the kernel's atomicMin
-    col_key = torch.full((m,), BIG << 32, dtype=torch.int64, device=dev)
-    _launch(f"{name}_{inner}", d1.data_ptr(), valid1.data_ptr(), n,
-            d2.data_ptr(), valid2.data_ptr(), m, idx.data_ptr(),
-            best.data_ptr(), second.data_ptr(), col_key.data_ptr())
+    # per-column (distance << 32 | row) keys for the kernel's atomicMin,
+    # initialised by its pre-pass
+    col_key = torch.empty(m, dtype=torch.int64, device=dev)
+    # scratch: counts, row list, column list, row tiles' counters, then the
+    # splits' partial statistics (16-byte entries)
+    tiles = -(-n // VALID_ROWS)
+    lists = -(-(2 + n + m + tiles) // 4) * 4
+    scratch = torch.empty(lists + 4 * VALID_MAX_SPLITS * n, dtype=torch.int32, device=dev)
+    ptr = scratch.data_ptr()
+    _launch(name, d1.data_ptr(), valid1.data_ptr(), n, d2.data_ptr(), valid2.data_ptr(), m,
+            idx.data_ptr(), best.data_ptr(), second.data_ptr(), col_key.data_ptr(),
+            ptr, ptr + 4 * 2, ptr + 4 * (2 + n), ptr + 4 * (2 + n + m), ptr + 4 * lists)
     return idx, best, second, col_key & 0xFFFFFFFF
 
 
@@ -409,6 +495,128 @@ def hamming_best_two_projection_ref(mp_desc, proj_uv, proj_valid, radius,
     return best_two(torch.where(mask, hamming_matrix_ref(mp_desc, feat_desc), BIG))
 
 
+def projection_chunks(m: int) -> List[Tuple[int, int]]:
+    """The column chunks of the projection match's launches: PROJ_CHUNK
+    columns each, the rest in the last; one chunk up to PROJ_CHUNK."""
+    return [(s, min(m, s + PROJ_CHUNK)) for s in range(0, m, PROJ_CHUNK)]
+
+
+def projection_window_candidates(proj_uv, proj_valid, radius, feat_uv,
+                                 feat_valid) -> List[np.ndarray]:
+    """The columns that csrc/hamming.cu visits for each row in one launch,
+    in its order (feat_uv, feat_valid: that launch's chunk; the indices are
+    the chunk's own). The index: a valid column with |u|, |v| < PROJ_LIMIT
+    lies in cell (floor(u / PROJ_CELL), floor(v / PROJ_CELL)), the others
+    (NaN and inf included) in an overflow list; the grid spans the valid
+    columns' cells from the least to the largest key, gx across (at most
+    PROJ_MAX_CELLS) and at most PROJ_MAX_CELLS // gx down; cells beyond go
+    to the overflow list; cells are stored row-major. A valid row visits
+    the overflow list, then for each cell row of floor((v - |r|) / 16) - 1 ..
+    floor((v + |r|) / 16) + 1 the cells floor((u - |r|) / 16) - 1 ..
+    floor((u + |r|) / 16) + 1 (float32 arithmetic); every indexed column, in
+    index order, when one of those four ends is not finite or not below
+    PROJ_LIMIT or the square covers more cells than the index holds
+    columns. Within a cell the kernel's atomics leave any order: here the
+    columns come in descending order, the one that a first-seen tie rule
+    would get wrong. An invalid row visits nothing."""
+    f32 = np.float32
+    n = proj_uv.shape[0]
+    pu, pv = (proj_uv[:, k].cpu().numpy() for k in (0, 1))
+    r = _row_radius(radius, n, proj_uv.device).to(torch.float32).cpu().numpy()
+    fu, fv = (feat_uv[:, k].cpu().numpy() for k in (0, 1))
+    lim, inv = f32(PROJ_LIMIT), f32(1.0 / PROJ_CELL)
+    cols = np.flatnonzero(feat_valid.cpu().numpy())
+    with np.errstate(invalid="ignore"):
+        inrange = (np.abs(fu[cols]) < lim) & (np.abs(fv[cols]) < lim)
+    kx = np.floor(fu[cols][inrange] * inv).astype(np.int64)
+    ky = np.floor(fv[cols][inrange] * inv).astype(np.int64)
+    gx = gy = xlo = ylo = 0
+    if kx.size:
+        xlo, ylo = int(kx.min()), int(ky.min())
+        gx = min(int(kx.max()) - xlo + 1, PROJ_MAX_CELLS)
+        gy = min(int(ky.max()) - ylo + 1, PROJ_MAX_CELLS // gx)
+    cells = gx * gy
+    bucket = np.zeros(cols.size, dtype=np.int64)
+    cx, cy = kx - xlo, ky - ylo
+    bucket[inrange] = np.where((cx < gx) & (cy < gy), 1 + cy * gx + cx, 0)
+    order = np.lexsort((-cols, bucket))            # by bucket, descending columns
+    sorted_cols, sorted_b = cols[order], bucket[order]
+    start = np.searchsorted(sorted_b, np.arange(cells + 2))   # bucket b: [start[b], start[b+1])
+    out = []
+    for i, valid in enumerate(proj_valid.cpu().numpy()):
+        if not valid:
+            out.append(np.zeros(0, dtype=np.int64))
+            continue
+        ar = np.abs(f32(r[i]))
+        with np.errstate(invalid="ignore", over="ignore"):
+            ends = (pu[i] - ar, pu[i] + ar, pv[i] - ar, pv[i] + ar)   # float32
+            walk_all = not all(abs(e) < lim for e in ends)
+        cx0, cx1, cy0, cy1 = 0, -1, 0, -1
+        if not walk_all and cells > 0:
+            cx0 = max(0, int(np.floor(ends[0] * inv)) - 1 - xlo)
+            cx1 = min(gx - 1, int(np.floor(ends[1] * inv)) + 1 - xlo)
+            cy0 = max(0, int(np.floor(ends[2] * inv)) - 1 - ylo)
+            cy1 = min(gy - 1, int(np.floor(ends[3] * inv)) + 1 - ylo)
+            if cx0 <= cx1 and cy0 <= cy1 and (cx1 - cx0 + 1) * (cy1 - cy0 + 1) > cols.size:
+                walk_all = True
+        if walk_all:
+            out.append(sorted_cols)
+            continue
+        segs = [sorted_cols[:start[1]]]
+        if cx0 <= cx1:
+            segs += [sorted_cols[start[1 + y * gx + cx0]:start[1 + y * gx + cx1 + 1]]
+                     for y in range(cy0, cy1 + 1)]
+        out.append(np.concatenate(segs))
+    return out
+
+
+def hamming_best_two_projection_gridded_ref(mp_desc, proj_uv, proj_valid, radius,
+                                            pred_level, feat_desc, feat_uv, feat_valid,
+                                            feat_level, level_slack: int):
+    """CPU model of csrc/hamming.cu: for each chunk of projection_chunks,
+    each row visits the columns of ``projection_window_candidates`` in
+    that order, applies the plain version's level test and exact float32
+    radius test ((du*du) + (dv*dv) <= r*r, each operation rounded) and keeps
+    (best, idx, second) ordered by (distance, column), as the kernel's
+    lanes do; then it merges them into the row's result so far by
+    stat_merge, as a seeded launch does. The chunks come last first.
+    Equal to hamming_best_two_projection_ref wherever the visit holds every
+    pair that passes, which is what the spare cells, the overflow list and
+    the full walk ensure."""
+    f32 = np.float32
+    n = mp_desc.shape[0]
+    pu, pv = (proj_uv[:, k].cpu().numpy() for k in (0, 1))
+    r = _row_radius(radius, n, proj_uv.device).to(torch.float32).cpu().numpy()
+    fu, fv = (feat_uv[:, k].cpu().numpy() for k in (0, 1))
+    lv_r, lv_c = pred_level.cpu().numpy(), feat_level.cpu().numpy()
+    dR = mp_desc.cpu().numpy().view(np.uint32)
+    dC = feat_desc.cpu().numpy().view(np.uint32)
+    idx = np.zeros(n, dtype=np.int64)
+    best = np.full(n, BIG, dtype=np.int32)
+    second = np.full(n, BIG, dtype=np.int32)
+    for c0, c1 in projection_chunks(feat_desc.shape[0])[::-1]:
+        cands = projection_window_candidates(proj_uv, proj_valid, radius, feat_uv[c0:c1],
+                                             feat_valid[c0:c1])
+        for i, c in enumerate(cands):
+            c = c + c0
+            with np.errstate(invalid="ignore", over="ignore"):
+                du, dv = pu[i] - fu[c], pv[i] - fv[c]
+                ok = ((np.abs(lv_c[c] - lv_r[i]) <= level_slack)
+                      & ((du * du) + (dv * dv) <= f32(r[i]) * f32(r[i])))
+            b, j0, s = BIG, 0, BIG
+            for j in c[ok]:
+                d = int(np.bitwise_count(dR[i] ^ dC[j]).sum())
+                if d < b or (d == b and j < j0):
+                    b, j0, s = d, int(j), b
+                else:
+                    s = min(s, d)
+            best[i], idx[i], second[i] = stat_merge(
+                (int(best[i]), int(idx[i]), int(second[i])), (b, j0, s))
+    dev = mp_desc.device
+    return (torch.from_numpy(idx).to(dev), torch.from_numpy(best).to(dev),
+            torch.from_numpy(second).to(dev))
+
+
 def hamming_best_two_projection(mp_desc: torch.Tensor, proj_uv: torch.Tensor,
                                 proj_valid: torch.Tensor, radius,
                                 pred_level: torch.Tensor, feat_desc: torch.Tensor,
@@ -421,8 +629,12 @@ def hamming_best_two_projection(mp_desc: torch.Tensor, proj_uv: torch.Tensor,
     level_slack. Returns per row (idx int64, best int32, second int32) as
     hamming_best_two_valid does.
 
-    CPU: plain version; CUDA: the fused kernel, which computes the mask
-    from the per-row and per-column vectors and writes no N x M."""
+    CPU: plain version; CUDA: the grid-indexed window search
+    (csrc/hamming.cu), which indexes the columns by 16-px cell in shared
+    memory and tests only the columns of the cells around a row's window:
+    one launch for M <= PROJ_CHUNK, else one a chunk of projection_chunks(M)
+    in column order, each after the first merging into the results of the
+    ones before. No read-back: it runs inside the fused tracking step."""
     n, m = mp_desc.shape[0], feat_desc.shape[0]
     if n == 0 or m == 0:
         dev = mp_desc.device
@@ -458,11 +670,12 @@ def hamming_best_two_projection(mp_desc: torch.Tensor, proj_uv: torch.Tensor,
     idx = torch.empty(n, dtype=torch.int64, device=dev)
     best = torch.empty(n, dtype=torch.int32, device=dev)
     second = torch.empty(n, dtype=torch.int32, device=dev)
-    _launch(name, mp_desc.data_ptr(), proj_uv.data_ptr(), proj_valid.data_ptr(),
-            radius_ptr, radius_scalar, pred_level.data_ptr(), n,
-            feat_desc.data_ptr(), feat_uv.data_ptr(), feat_valid.data_ptr(),
-            feat_level.data_ptr(), m, int(level_slack), idx.data_ptr(),
-            best.data_ptr(), second.data_ptr())
+    for c0, c1 in projection_chunks(m):
+        _launch(name, mp_desc.data_ptr(), proj_uv.data_ptr(), proj_valid.data_ptr(),
+                radius_ptr, radius_scalar, pred_level.data_ptr(), n,
+                feat_desc.data_ptr(), feat_uv.data_ptr(), feat_valid.data_ptr(),
+                feat_level.data_ptr(), c1 - c0, c0, int(c0 > 0), int(level_slack),
+                idx.data_ptr(), best.data_ptr(), second.data_ptr())
     return idx, best, second
 
 

@@ -8,6 +8,8 @@ and reading a ``jax.profiler`` trace:
 - ``launches(fn, device)``: device kernels and copies one call issues, read
   from ``torch.profiler``'s CUDA activity (``device_profile`` adds the
   union of their intervals, the call's device busy time);
+  ``graph_launches(fn, device)`` counts the same as the nodes of a CUDA
+  graph that captures the call, where the call can be captured;
 - ``trace_window(device, frames)``: a context manager that traces the block
   with ``torch.profiler`` (CUDA activity) and reports the window's wall
   time, the union of its kernel, memcpy and memset intervals, the busy
@@ -18,7 +20,8 @@ On the H100, a process that has launched kernels for a minute or more
 without the profiler loses a few device events from each later traced
 region (5 after a minute, about 46 ten minutes into chip_smoke.py), so
 small calls read few or no launches there: take per-call launch counts
-from a fresh process (profile_stages run on its own).
+from a fresh process (profile_stages run on its own), or from
+``graph_launches``, which reads no events.
 
 On the CPU there is no device activity to read: ``launches`` returns None
 and ``trace_window`` reports the wall time alone, with no busy share.
@@ -106,6 +109,58 @@ def launches(fn: Callable, device: torch.device) -> Optional[int]:
     """Kernels, memcpys and memsets that one call of fn issues on the card;
     None on the CPU."""
     return device_profile(fn, device)["launches"]
+
+
+# CUgraphNodeType: the node types that are device launches, and a child graph
+_GRAPH_LAUNCH_NODES = (0, 1, 2)      # kernel, memcpy, memset
+_GRAPH_CHILD_NODE = 4
+
+
+def graph_launches(fn: Callable, device: torch.device) -> Optional[int]:
+    """Kernels, memcpys and memsets that one call of fn issues on the card,
+    counted as the nodes of a CUDA graph that captures the call (after one
+    uncaptured call), through the driver's cuGraphGetNodes and
+    cuGraphNodeGetType, a child graph's nodes counted within it. Unlike
+    ``launches`` it cannot lose events late in a process; fn must be
+    capturable (no read-back). None on the CPU."""
+    if device.type != "cuda":
+        return None
+    import ctypes
+    fn()
+    sync(device)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc: int, what: str) -> None:
+        if rc != 0:
+            raise RuntimeError(f"{what} failed: CUresult {rc}")
+
+    def count(g) -> int:
+        n = ctypes.c_size_t(0)
+        check(cu.cuGraphGetNodes(ctypes.c_void_p(g), None, ctypes.byref(n)), "cuGraphGetNodes")
+        nodes = (ctypes.c_void_p * n.value)()
+        check(cu.cuGraphGetNodes(ctypes.c_void_p(g), nodes, ctypes.byref(n)), "cuGraphGetNodes")
+        total = 0
+        for node in nodes[:n.value]:
+            kind = ctypes.c_int(-1)
+            check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+                  "cuGraphNodeGetType")
+            if kind.value in _GRAPH_LAUNCH_NODES:
+                total += 1
+            elif kind.value == _GRAPH_CHILD_NODE:
+                child = ctypes.c_void_p()
+                check(cu.cuGraphChildGraphNodeGetGraph(ctypes.c_void_p(node),
+                                                       ctypes.byref(child)),
+                      "cuGraphChildGraphNodeGetGraph")
+                total += count(child.value)
+        return total
+
+    try:
+        return count(graph.raw_cuda_graph())
+    finally:
+        graph.reset()
 
 
 def busy_union_ns(events: list) -> int:

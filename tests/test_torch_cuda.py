@@ -175,14 +175,15 @@ def test_hamming_matrix_on_a_side_stream_and_in_a_cuda_graph(dev):
     assert torch.equal(captured, kernels.hamming_matrix_ref(d1, d2))
 
 
-def _match_case(n, m, dev, ties):
-    """Random descriptors with about 25% of rows and columns invalid; with
-    `ties`, every 7th column repeats its left neighbour, every 5th row is
-    a copy of a column, and one row and one column are fully masked."""
+def _match_case(n, m, dev, ties, keep=0.75):
+    """Random descriptors with about 25% of rows and columns invalid (a
+    share `keep` valid); with `ties`, every 7th column repeats its left
+    neighbour, every 5th row is a copy of a column, and one row and one
+    column are fully masked."""
     rng = np.random.RandomState(n * 3 + m)
     d1, d2 = _words(rng, n, dev), _words(rng, m, dev)
-    v1 = torch.from_numpy(rng.rand(n) < 0.75).to(dev)
-    v2 = torch.from_numpy(rng.rand(m) < 0.75).to(dev)
+    v1 = torch.from_numpy(rng.rand(n) < keep).to(dev)
+    v2 = torch.from_numpy(rng.rand(m) < keep).to(dev)
     if ties:
         d2[7::7] = d2[6:-1:7][: d2[7::7].shape[0]].clone()
         src = torch.from_numpy(rng.randint(0, m, n)).to(dev)
@@ -192,23 +193,25 @@ def _match_case(n, m, dev, ties):
     return d1, v1, d2, v2
 
 
-@pytest.mark.parametrize("inner", ["popc", "mma"])
+@pytest.mark.parametrize("keep", [0.75, 0.04])
 @pytest.mark.parametrize("n,m,ties", [(16384, 1024, False), (1024, 1024, True),
                                       (16384, 16384, True), (1, 1, False),
                                       (300, 77, True), (65, 130, True), (33, 7, False)])
-def test_hamming_best_two_valid_kernel_equals_plain(dev, n, m, ties, inner):
-    """Exact equality of idx, best, second and the column argmin, for both
-    inner products; the plain version runs in row blocks at 16,384^2."""
-    d1, v1, d2, v2 = _match_case(n, m, dev, ties)
-    name = f"hamming_best_two_valid_{inner}"
+def test_hamming_best_two_valid_kernel_equals_plain(dev, n, m, ties, keep):
+    """Exact equality of idx, best, second and the column argmin of the
+    compacted tensor-core search, with 75% and 4% of rows and columns
+    valid (the loop closer's map x map masks); the plain version runs in
+    row blocks at 16,384^2."""
+    d1, v1, d2, v2 = _match_case(n, m, dev, ties, keep)
+    name = "hamming_best_two_valid"
     before = kernels.launch_counts()[name]
-    got = kernels.hamming_best_two_valid(d1, v1, d2, v2, inner=inner)
+    got = kernels.hamming_best_two_valid(d1, v1, d2, v2)
     torch.cuda.synchronize()
     assert kernels.launch_counts()[name] == before + 1
     want = kernels.hamming_best_two_valid_ref(d1, v1, d2, v2, row_block=2048)
     for g, w, what in zip(got, want, ("idx", "best", "second", "argmin_row")):
         assert g.dtype == w.dtype and torch.equal(g, w), what
-    if ties and n > 100:
+    if ties and n > 100 and keep > 0.5:
         assert int(((got[1] == got[2]) & (got[1] < kernels.BIG)).sum()) > 0
 
 
@@ -474,8 +477,7 @@ def test_fused_matches_on_a_side_stream(dev):
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        got_v = [kernels.hamming_best_two_valid(d1, v1, d2, v2, inner=i)
-                 for i in ("popc", "mma")]
+        got_v = [kernels.hamming_best_two_valid(d1, v1, d2, v2)]
         got_p = kernels.hamming_best_two_projection(**c, level_slack=1)
     side.synchronize()
     want_v = kernels.hamming_best_two_valid_ref(d1, v1, d2, v2)
@@ -500,7 +502,9 @@ def test_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError):
         kernels.hamming_best_two_valid(d, v.to(torch.uint8), d, v)
     with pytest.raises(ValueError):
-        kernels.hamming_best_two_valid(d, v, d, v, inner="wgmma")
+        kernels.hamming_best_two_valid(d, v, d, v[:3])
+    with pytest.raises(TypeError):
+        kernels.hamming_best_two_valid(d, v, d, v, inner="mma")    # one route only
     c = _stereo_case(64, kernels.STEREO_CHUNK + 1, dev, "random")
     got = kernels.hamming_best_two_stereo(**c, max_disparity=128.0)
     want = kernels.hamming_best_two_stereo_ref(**c, max_disparity=128.0)
@@ -552,7 +556,7 @@ def test_monoslam_on_the_card_tracks_like_the_cpu(dev, monkeypatch):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     assert counts["fast_score_nms_levels"] > 0, counts
-    assert counts["hamming_best_two_valid_popc"] + counts["hamming_best_two_valid_mma"] > 0, counts
+    assert counts["hamming_best_two_valid"] > 0, counts
     assert counts["hamming_best_two_projection"] > 0, counts
     assert slam.state == TrackState.OK
     assert slam.stats["kf_inserted"] >= 3
@@ -628,11 +632,12 @@ def test_correct_loop_on_the_card_matches_the_cpu(dev):
     np.testing.assert_allclose(got[0][1], got[1][1], atol=1e-3)
 
 
-@pytest.mark.parametrize("keep,inner", [(0.04, "popc"), (0.04, "mma"), (0.75, "popc"),
-                                        (0.75, "mma")])
-def test_validity_match_at_the_collab_arena_shape(dev, keep, inner):
+@pytest.mark.parametrize("keep,ties", [(0.04, False), (0.04, True), (0.75, False),
+                                       (0.75, True)])
+def test_validity_match_at_the_collab_arena_shape(dev, keep, ties):
     """32768 x 32768, the collaborative server's map x map cascade (two
-    agents of 16384 landmarks), about 4% and 75% valid: exact."""
+    agents of 16384 landmarks), about 4% and 75% valid, with and without
+    duplicated descriptors across the column splits: exact."""
     n = 32768
     g = torch.Generator(device=dev)
     g.manual_seed(int(keep * 100))
@@ -641,7 +646,10 @@ def test_validity_match_at_the_collab_arena_shape(dev, keep, inner):
     d1, d2 = words(), words()
     v1 = torch.rand(n, generator=g, device=dev) < keep
     v2 = torch.rand(n, generator=g, device=dev) < keep
-    got = kernels.hamming_best_two_valid(d1, v1, d2, v2, inner=inner)
+    if ties:
+        d2[::97] = d2[5]
+        d1[::89] = d2[5]
+    got = kernels.hamming_best_two_valid(d1, v1, d2, v2)
     torch.cuda.synchronize()
     want = kernels.hamming_best_two_valid_ref(d1, v1, d2, v2, row_block=2048)
     for gg, w, what in zip(got, want, ("idx", "best", "second", "argmin_row")):
@@ -658,6 +666,100 @@ def test_projection_match_at_the_collab_arena_shape(dev):
     for gg, w, what in zip(got, want, ("idx", "best", "second")):
         assert gg.dtype == w.dtype and torch.equal(gg, w), what
     assert int((got[1] < kernels.BIG).sum()) > 0
+
+
+def _smoke():
+    """chip_smoke.py, whose kernels phase builds the matchers' edge cases
+    (proj_edge_case, valid_edge_case); imported inside the card tests
+    alone, since it blocks JAX for the process that imports it."""
+    import importlib
+    import pathlib
+    import sys
+    root = str(pathlib.Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+@pytest.mark.parametrize("kind", ["cell_borders", "outside_nan_inf", "inf_radius",
+                                  "slack_all", "all_invalid", "one_row", "one_col",
+                                  "off_tiles", "m4608", "past_launch"])
+def test_projection_grid_search_edge_cases(dev, kind):
+    """The grid-indexed window search against the plain version on the
+    edge cases of chip_smoke.proj_edge_case: exact, one launch up to
+    PROJ_CHUNK columns."""
+    smoke = _smoke()
+    n, m = smoke.proj_edge_shape(kind)
+    c = smoke.proj_edge_case(kind, dict(_projection_case(n, m, dev), level_slack=1))
+    before = kernels.launch_counts()["hamming_best_two_projection"]
+    got = kernels.hamming_best_two_projection(**c)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()["hamming_best_two_projection"] - before
+    assert launches == len(kernels.projection_chunks(c["feat_desc"].shape[0]))
+    want = kernels.hamming_best_two_projection_ref(**c)
+    for g, w, what in zip(got, want, ("idx", "best", "second")):
+        assert g.dtype == w.dtype and torch.equal(g, w), what
+    if kind == "cell_borders":
+        assert int((got[1] == 0).sum()) > 10000
+
+
+@pytest.mark.parametrize("kind", ["all_invalid", "one_row", "one_col", "off_tiles",
+                                  "ties_across_splits", "full"])
+def test_validity_compacted_search_edge_cases(dev, kind):
+    """The compacted tensor-core search against the plain version on the
+    edge cases of chip_smoke.valid_edge_case (nothing valid, one valid row
+    or column, shapes off the tiles, one descriptor in rows of several row
+    tiles and columns of several splits) and all valid."""
+    smoke = _smoke()
+    n, m = smoke.valid_edge_shape(kind)
+    d1, v1, d2, v2 = smoke.valid_edge_case(
+        kind, *_match_case(n, m, dev, True, 1.0 if kind == "full" else 0.75))
+    got = kernels.hamming_best_two_valid(d1, v1, d2, v2)
+    torch.cuda.synchronize()
+    want = kernels.hamming_best_two_valid_ref(d1, v1, d2, v2)
+    for g, w, what in zip(got, want, ("idx", "best", "second", "argmin_row")):
+        assert g.dtype == w.dtype and torch.equal(g, w), what
+    if kind == "ties_across_splits":
+        assert smoke.valid_ties_hold(got)
+
+
+def test_matchers_device_launches_a_call(dev):
+    """The nodes of a CUDA graph of one call (profiling.common's
+    graph_launches) count what torch.profiler counts in a fresh process:
+    three device launches a validity match, one a projection match."""
+    from multi_orbslam3_tpu_torch.profiling import common
+    d1, v1, d2, v2 = _match_case(1024, 1024, dev, True)
+    c = dict(_projection_case(16384, 1024, dev), level_slack=2)
+    fns = {"valid": (lambda: kernels.hamming_best_two_valid(d1, v1, d2, v2), 3),
+           "projection": (lambda: kernels.hamming_best_two_projection(**c), 1)}
+    for name, (fn, want) in fns.items():
+        assert common.graph_launches(fn, dev) == want, name
+        assert common.launches(fn, dev) == want, name
+
+
+def test_both_matchers_replay_from_a_cuda_graph(dev):
+    """Both fused matches captured in one CUDA graph (no read-back, no
+    allocation the capture cannot hold) and replayed on new inputs."""
+    d1, v1, d2, v2 = _match_case(1024, 1024, dev, True)
+    c = dict(_projection_case(16384, 1024, dev), level_slack=2)
+    kernels.hamming_best_two_valid(d1, v1, d2, v2)          # set-up before capture
+    kernels.hamming_best_two_projection(**c)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got_v = kernels.hamming_best_two_valid(d1, v1, d2, v2)
+        got_p = kernels.hamming_best_two_projection(**c)
+    rng = np.random.RandomState(41)
+    d1.copy_(_words(rng, 1024, dev))
+    v2.copy_(torch.from_numpy(rng.rand(1024) < 0.5).to(dev))
+    c["proj_uv"].add_(torch.from_numpy(rng.normal(0, 2, (16384, 2)).astype(np.float32)).to(dev))
+    c["proj_valid"].copy_(torch.from_numpy(rng.rand(16384) < 0.3).to(dev))
+    graph.replay()
+    torch.cuda.synchronize()
+    want_v = kernels.hamming_best_two_valid_ref(d1, v1, d2, v2)
+    want_p = kernels.hamming_best_two_projection_ref(**c)
+    assert all(torch.equal(g, w) for g, w in zip(got_v, want_v))
+    assert all(torch.equal(g, w) for g, w in zip(got_p, want_p))
 
 
 def _gba_problem(d, n_kf=24, n_mp=800, n_feat=64, seed=0):

@@ -128,8 +128,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     kernels.hamming_best_two_stereo(d, uv, v, lv, torch.ones(4), d, uv, v, lv, 128.0)
     counts = kernels.launch_counts()
     assert set(counts) == {"fast_score_nms_levels", "hamming_matrix",
-                           "hamming_best_two_valid_popc", "hamming_best_two_valid_mma",
-                           "hamming_best_two_projection", "hamming_best_two_stereo"}
+                           "hamming_best_two_valid", "hamming_best_two_projection",
+                           "hamming_best_two_stereo"}
     assert not any(counts.values())
 
 

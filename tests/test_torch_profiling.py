@@ -132,6 +132,10 @@ def test_trace_window_on_the_cpu_reports_no_busy_share():
     assert common.launches(lambda: torch.ones(2), CPU) is None
 
 
+def test_graph_launches_on_the_cpu_is_none():
+    assert common.graph_launches(lambda: torch.ones(2), CPU) is None
+
+
 # ----------------------------------------------------------------------
 # the scripts' main functions at a small size
 # ----------------------------------------------------------------------
