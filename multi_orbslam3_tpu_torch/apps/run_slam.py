@@ -8,7 +8,9 @@ directory (``--euroc``, with on-the-fly stereo rectification for the
 stereo modes) or a synthetic ground-truth sequence, writes the TUM
 keyframe trajectory (SaveKeyFrameTrajectoryEuRoC semantics), a map
 snapshot (map.png) and report.json, and prints one JSON report line with
-fps / stats / ATE.
+fps / stats / ATE. The report's "timing" is the port's span table
+(utils/timing.py: every span and counter of the frame loop, with the
+host's synchronisations counted on a card), recorded over the frames.
 
 Usage:
     python -m multi_orbslam3_tpu_torch.apps.run_slam --out /tmp/run1 \\
@@ -136,9 +138,10 @@ def main() -> None:
 
     n = 0
     states = []
-    if args.euroc:
-        for item in seq_iter:
-            with GLOBAL_TIMER.stage("frame"):
+    # the port's tracer: its span table is the report's "timing"
+    with GLOBAL_TIMER.recording():
+        if args.euroc:
+            for item in seq_iter:
                 if sensor == "mono":
                     states.append(slam.process_frame(item[1], item[0]))
                 elif sensor == "mono_inertial":
@@ -152,11 +155,10 @@ def main() -> None:
                     t, left, right, acc, gyro, dt = item
                     states.append(slam.process_frame_stereo_imu(
                         left, right, t, acc, gyro, dt))
-            n += 1
-    else:
-        for i in range(seq.images.shape[0]):
-            t = float(seq.timestamps[i])
-            with GLOBAL_TIMER.stage("frame"):
+                n += 1
+        else:
+            for i in range(seq.images.shape[0]):
+                t = float(seq.timestamps[i])
                 if sensor == "mono":
                     states.append(slam.process_frame(seq.images[i], t))
                 elif sensor == "mono_inertial":
@@ -175,7 +177,7 @@ def main() -> None:
                 else:   # imu_rgbd
                     states.append(slam.process_frame_rgbd_imu(
                         seq.images[i], seq.depths[i], t, *imu_batch(i)))
-            n += 1
+                n += 1
     wall = time.perf_counter() - t_start
 
     tum.write_tum(os.path.join(args.out, "KeyFrameTrajectory.txt"),

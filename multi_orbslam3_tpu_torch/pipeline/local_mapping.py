@@ -22,6 +22,7 @@ from multi_orbslam3_tpu_torch.map.mapstate import NO_MP, MapState
 from multi_orbslam3_tpu_torch.opt import local_ba
 from multi_orbslam3_tpu_torch.pipeline.tracking import (
     camera_center, invert_matches, level_from_ratio, level_inv_sigma2)
+from multi_orbslam3_tpu_torch.utils.timing import GLOBAL_TIMER
 
 
 class TriangulationOut(NamedTuple):
@@ -298,12 +299,14 @@ def map_keyframe(m: MapState, kf_new, K: cam.PinholeK, *,
                  bf: float = 0.0) -> MapKFOut:
     """The whole per-keyframe mapping chain: triangulate/fuse/stats, then
     the windowed BA."""
-    proc = process_new_keyframe(
-        m, kf_new, K, n_neighbors=n_neighbors, width=width, height=height,
-        scale_factor=scale_factor, n_levels=n_levels)
-    out = local_bundle_adjustment(
-        proc.map, kf_new, K, n_window=n_window, n_fixed=n_fixed,
-        n_points=n_points, scale_factor=scale_factor, iters=iters,
-        covis_threshold=covis_threshold, bf=bf)
+    with GLOBAL_TIMER.stage("mapping.new_keyframe"):
+        proc = process_new_keyframe(
+            m, kf_new, K, n_neighbors=n_neighbors, width=width, height=height,
+            scale_factor=scale_factor, n_levels=n_levels)
+    with GLOBAL_TIMER.stage("mapping.local_ba"):
+        out = local_bundle_adjustment(
+            proc.map, kf_new, K, n_window=n_window, n_fixed=n_fixed,
+            n_points=n_points, scale_factor=scale_factor, iters=iters,
+            covis_threshold=covis_threshold, bf=bf)
     return MapKFOut(map=out.map, n_created=proc.n_created,
                     n_fused=proc.n_fused, chi2=out.chi2)

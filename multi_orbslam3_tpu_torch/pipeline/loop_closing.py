@@ -36,6 +36,7 @@ from multi_orbslam3_tpu_torch.map.mapstate import MapState
 from multi_orbslam3_tpu_torch.opt import pose_graph, sim3_solve
 from multi_orbslam3_tpu_torch.pipeline import local_mapping
 from multi_orbslam3_tpu_torch.pipeline.tracking import camera_center, predict_levels
+from multi_orbslam3_tpu_torch.utils.timing import GLOBAL_TIMER
 
 
 class LoopMatch(NamedTuple):
@@ -322,7 +323,8 @@ class LoopCloser:
             self._streak = 0
             self._streak_cand = -1
             return m
-        scores_np = scores.cpu().numpy().copy()
+        with GLOBAL_TIMER.stage("wait.scores"):
+            scores_np = scores.cpu().numpy().copy()
         # the most recent keyframes always score high and are never loops
         scores_np[max(0, kf - 10):kf + 1] = 0.0
         best = int(np.argmax(scores_np))

@@ -28,6 +28,7 @@ from multi_orbslam3_tpu_torch.map import mapstate as ms
 from multi_orbslam3_tpu_torch.pipeline import tracking
 from multi_orbslam3_tpu_torch.pipeline.system import (MonoSlam, TrackState,
                                                       _HostCopy)
+from multi_orbslam3_tpu_torch.utils.timing import GLOBAL_TIMER
 
 
 class StereoSlam(MonoSlam):
@@ -54,10 +55,15 @@ class StereoSlam(MonoSlam):
     # ------------------------------------------------------------------
     def process_frame_stereo(self, img_left, img_right,
                              timestamp: float) -> TrackState:
-        featsL, featsR = extractor.extract_features_pair(
-            self._image_f32(img_left), self._image_f32(img_right), self.cfg)
-        self._cur_depth = stereo.stereo_match(featsL, featsR, self._baseline_fx)
-        return self._process_with_depth(featsL, timestamp)
+        with GLOBAL_TIMER.stage("frame", self.frame_id + 1):
+            with GLOBAL_TIMER.stage("step"):
+                with GLOBAL_TIMER.stage("step.extract"):
+                    featsL, featsR = extractor.extract_features_pair(
+                        self._image_f32(img_left), self._image_f32(img_right), self.cfg)
+                with GLOBAL_TIMER.stage("step.stereo"):
+                    self._cur_depth = stereo.stereo_match(featsL, featsR,
+                                                          self._baseline_fx)
+            return self._process_with_depth(featsL, timestamp)
 
     # ------------------------------------------------------------------
     def process_frame_stereo_pipelined(self, img_left, img_right,
@@ -69,21 +75,22 @@ class StereoSlam(MonoSlam):
         the depth of the frame being finalized."""
         if self.state != TrackState.OK and not self._pipe:
             return self.process_frame_stereo(img_left, img_right, timestamp)
-        ts = self._rel_ts(timestamp)
-        il = self.to_device(img_left)
-        ir = self.to_device(img_right)
-        self.frame_id += 1
-        self._adopt_pending()
-        if self._T_cur_dev is None:
-            self._T_cur_dev = self._upload(self.T_cur)
-            self._T_vel_dev = self._upload(self.T_vel)
-        feats, sd, res, pose_dev, tvel_dev = tracking.fused_step_stereo_chained(
-            self.cfg, self.m, il, ir, self._T_cur_dev, self._T_vel_dev)
-        self._pipe.append((feats, res, ts, _HostCopy(res.packed), sd))
-        self._T_cur_dev, self._T_vel_dev = pose_dev, tvel_dev
-        while len(self._pipe) > self.pipeline_depth:
-            self._finalize_frame(*self._pipe.pop(0))
-        return self.state
+        with GLOBAL_TIMER.stage("frame", self.frame_id + 1):
+            ts = self._rel_ts(timestamp)
+            il = self.to_device(img_left)
+            ir = self.to_device(img_right)
+            self.frame_id += 1
+            self._adopt_pending()
+            if self._T_cur_dev is None:
+                self._T_cur_dev = self._upload(self.T_cur)
+                self._T_vel_dev = self._upload(self.T_vel)
+            with GLOBAL_TIMER.stage("step"):
+                feats, sd, res, pose_dev, tvel_dev = tracking.fused_step_stereo_chained(
+                    self.cfg, self.m, il, ir, self._T_cur_dev, self._T_vel_dev)
+            self._pipe.append((self.frame_id, feats, res, ts, _HostCopy(res.packed), sd))
+            self._T_cur_dev, self._T_vel_dev = pose_dev, tvel_dev
+            self._drain_pipe(self.pipeline_depth)
+            return self.state
 
     def _finalize_frame(self, feats, res, ts, packed, sd=None) -> None:
         if sd is not None:
@@ -170,7 +177,12 @@ class RGBDSlam(StereoSlam):
     becomes a virtual right coordinate."""
 
     def process_frame_rgbd(self, img, depth, timestamp: float) -> TrackState:
-        feats = extractor.extract_features(self._image_f32(img), self.cfg)
-        depth_dev = self._image_f32(depth)
-        self._cur_depth = stereo.rgbd_depth(feats, depth_dev, self._baseline_fx)
-        return self._process_with_depth(feats, timestamp)
+        with GLOBAL_TIMER.stage("frame", self.frame_id + 1):
+            with GLOBAL_TIMER.stage("step"):
+                with GLOBAL_TIMER.stage("step.extract"):
+                    feats = extractor.extract_features(self._image_f32(img), self.cfg)
+                with GLOBAL_TIMER.stage("step.stereo"):
+                    depth_dev = self._image_f32(depth)
+                    self._cur_depth = stereo.rgbd_depth(feats, depth_dev,
+                                                        self._baseline_fx)
+            return self._process_with_depth(feats, timestamp)

@@ -33,6 +33,7 @@ from multi_orbslam3_tpu_torch.geometry import camera as cam
 from multi_orbslam3_tpu_torch.map import mapstate as ms
 from multi_orbslam3_tpu_torch.pipeline import initializer, local_mapping, tracking
 from multi_orbslam3_tpu_torch.pipeline.loop_closing import LoopCloser
+from multi_orbslam3_tpu_torch.utils.timing import GLOBAL_TIMER
 
 
 class TrackState(enum.Enum):
@@ -58,7 +59,8 @@ class _HostCopy:
 
     def numpy(self) -> np.ndarray:
         if self._event is not None:
-            self._event.synchronize()
+            with GLOBAL_TIMER.stage("wait.readback"):
+                self._event.synchronize()
         return self._host.numpy()
 
 
@@ -112,7 +114,8 @@ class MonoSlam:
         # (deterministic runs for drills and tests)
         self._pending_map = None
         self.defer_mapping = True
-        # pipelined loop: in-flight (feats, res, ts, host copy of packed)
+        # pipelined loop: in-flight (frame id, feats, res, ts, host copy of
+        # packed)
         self._pipe: List[tuple] = []
         # frames in flight before the host state machine consumes one:
         # frame i is dispatched while the host finalizes frame i - 1
@@ -171,29 +174,32 @@ class MonoSlam:
         return self._process_frame(img, self._rel_ts(timestamp))
 
     def _process_frame(self, img, timestamp: float) -> TrackState:
-        img = self.to_device(img)
-        self.frame_id += 1
-        # a >4 s timestamp jump starts a new sub-map
-        if self.trajectory and timestamp - self.trajectory[-1][0] > 4.0 \
-                and self.state != TrackState.NOT_INITIALIZED:
-            self._create_new_map()
-        self._adopt_pending()
-        if self.state == TrackState.NOT_INITIALIZED:
-            self._try_initialize(extractor.extract_features(img, self.cfg),
-                                 timestamp)
-        else:
-            self._pre_track(timestamp)
-            T_pred = (self.T_vel @ self.T_cur).astype(np.float32)
-            feats, res, m_stats = tracking.extract_and_track(
-                self.m, img, self._upload(T_pred), self.cfg)
-            self._m_stats = m_stats
-            self._track_decide(feats, res, T_pred, timestamp,
-                               _HostCopy(res.packed).numpy())
-            self._m_stats = None
-            self._post_track(timestamp)
-        self.trajectory.append((timestamp, self.T_cur.copy()))
-        self.frame_log.append((timestamp, self.state))
-        return self.state
+        with GLOBAL_TIMER.stage("frame", self.frame_id + 1):
+            img = self.to_device(img)
+            self.frame_id += 1
+            # a >4 s timestamp jump starts a new sub-map
+            if self.trajectory and timestamp - self.trajectory[-1][0] > 4.0 \
+                    and self.state != TrackState.NOT_INITIALIZED:
+                self._create_new_map()
+            self._adopt_pending()
+            if self.state == TrackState.NOT_INITIALIZED:
+                self._try_initialize(extractor.extract_features(img, self.cfg),
+                                     timestamp)
+            else:
+                self._pre_track(timestamp)
+                T_pred = (self.T_vel @ self.T_cur).astype(np.float32)
+                with GLOBAL_TIMER.stage("step"):
+                    feats, res, m_stats = tracking.extract_and_track(
+                        self.m, img, self._upload(T_pred), self.cfg)
+                self._m_stats = m_stats
+                with GLOBAL_TIMER.stage("finalize"):
+                    self._track_decide(feats, res, T_pred, timestamp,
+                                       _HostCopy(res.packed).numpy())
+                self._m_stats = None
+                self._post_track(timestamp)
+            self.trajectory.append((timestamp, self.T_cur.copy()))
+            self.frame_log.append((timestamp, self.state))
+            return self.state
 
     # ------------------------------------------------------------------
     # Pipelined loop: dispatch frame i, then finalize frame i-1 on the host
@@ -205,26 +211,34 @@ class MonoSlam:
             st = self.process_frame(img, timestamp)
             self._T_cur_dev = None
             return st
-        ts = self._rel_ts(timestamp)
-        img = self.to_device(img)
-        self.frame_id += 1
-        self._adopt_pending()
-        if self._T_cur_dev is None:
-            self._T_cur_dev = self._upload(self.T_cur)
-            self._T_vel_dev = self._upload(self.T_vel)
-        feats, res, pose_dev, tvel_dev = tracking.fused_step_chained(
-            self.cfg, self.m, img, self._T_cur_dev, self._T_vel_dev)
-        self._pipe.append((feats, res, ts, _HostCopy(res.packed)))
-        self._T_cur_dev, self._T_vel_dev = pose_dev, tvel_dev
-        while len(self._pipe) > self.pipeline_depth:
-            self._finalize_frame(*self._pipe.pop(0))
-        return self.state
+        with GLOBAL_TIMER.stage("frame", self.frame_id + 1):
+            ts = self._rel_ts(timestamp)
+            img = self.to_device(img)
+            self.frame_id += 1
+            self._adopt_pending()
+            if self._T_cur_dev is None:
+                self._T_cur_dev = self._upload(self.T_cur)
+                self._T_vel_dev = self._upload(self.T_vel)
+            with GLOBAL_TIMER.stage("step"):
+                feats, res, pose_dev, tvel_dev = tracking.fused_step_chained(
+                    self.cfg, self.m, img, self._T_cur_dev, self._T_vel_dev)
+            self._pipe.append((self.frame_id, feats, res, ts, _HostCopy(res.packed)))
+            self._T_cur_dev, self._T_vel_dev = pose_dev, tvel_dev
+            self._drain_pipe(self.pipeline_depth)
+            return self.state
 
     def finish(self) -> None:
         """Drain the pipelined loop (finalize all in-flight frames)."""
-        while self._pipe:
-            self._finalize_frame(*self._pipe.pop(0))
+        self._drain_pipe(0)
         self._T_cur_dev = None
+
+    def _drain_pipe(self, keep: int) -> None:
+        """Finalize in-flight frames, oldest first, until `keep` are left.
+        A pipe entry is (frame id, the _finalize_frame arguments)."""
+        while len(self._pipe) > keep:
+            frame, *entry = self._pipe.pop(0)
+            with GLOBAL_TIMER.stage("finalize", frame):
+                self._finalize_frame(*entry)
 
     def _finalize_frame(self, feats: FrameFeatures, res, ts: float,
                         packed: _HostCopy) -> None:
@@ -282,14 +296,16 @@ class MonoSlam:
         (the stereo and RGB-D synchronous loops)."""
         c = self.cfg
         T_pred = (self.T_vel @ self.T_cur).astype(np.float32)
-        res = tracking.track_frame(
-            self.m, feats, self._upload(T_pred), self.K,
-            width=c.camera.width, height=c.camera.height,
-            scale_factor=c.orb.scale_factor, n_levels=c.orb.n_levels,
-            radius_coarse=c.tracking.search_radius,
-            u_r=self._frame_ur(), bf=self._bf())
-        packed = _HostCopy(tracking.pack_result(res.pose, res)).numpy()
-        self._track_decide(feats, res, T_pred, ts, packed)
+        with GLOBAL_TIMER.stage("step"):
+            res = tracking.track_frame(
+                self.m, feats, self._upload(T_pred), self.K,
+                width=c.camera.width, height=c.camera.height,
+                scale_factor=c.orb.scale_factor, n_levels=c.orb.n_levels,
+                radius_coarse=c.tracking.search_radius,
+                u_r=self._frame_ur(), bf=self._bf())
+            packed = _HostCopy(tracking.pack_result(res.pose, res))
+        with GLOBAL_TIMER.stage("finalize"):
+            self._track_decide(feats, res, T_pred, ts, packed.numpy())
 
     # ------------------------------------------------------------------
     def _try_initialize(self, feats: FrameFeatures, ts: float) -> None:
@@ -527,14 +543,15 @@ class MonoSlam:
 
     def _insert_keyframe(self, feats: FrameFeatures, feat_mp: torch.Tensor,
                          ts: float) -> None:
-        m, k_new = ms.add_keyframe(self.m, feats, self._upload(self.T_cur), ts,
-                                   feat_mp, self.ref_kf, self.agent,
-                                   u_r=self._frame_ur(), cam4=self._cam4)
-        k = int(k_new)
-        if k < 0:   # capacity reached
-            return
-        self.m = m
-        self._seed_depth_points(k, feats)
+        with GLOBAL_TIMER.stage("keyframe"):
+            m, k_new = ms.add_keyframe(self.m, feats, self._upload(self.T_cur), ts,
+                                       feat_mp, self.ref_kf, self.agent,
+                                       u_r=self._frame_ur(), cam4=self._cam4)
+            k = int(k_new)
+            if k < 0:   # capacity reached
+                return
+            self.m = m
+            self._seed_depth_points(k, feats)
         # an immature map adopts its mapping results synchronously: a young
         # map whose triangulations lag starves tracking of landmarks
         self._active_map_kfs += 1
@@ -550,9 +567,10 @@ class MonoSlam:
         has completed; on the CPU adoption is synchronous."""
         if self._pending_map is not None:
             self._adopt_pending(force=True)
-        out = local_mapping.map_keyframe(
-            self.m, k, self.K, **local_mapping.mapping_kwargs(self.cfg),
-            bf=self._bf())
+        with GLOBAL_TIMER.stage("mapping"):
+            out = local_mapping.map_keyframe(
+                self.m, k, self.K, **local_mapping.mapping_kwargs(self.cfg),
+                bf=self._bf())
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
@@ -564,29 +582,35 @@ class MonoSlam:
     def _adopt_pending(self, force: bool = False) -> None:
         """Swap in the finished mapping result and run loop closing on its
         keyframe; without `force`, only once the device has finished it,
-        so the frame loop never stalls on the mapping chain."""
+        so the frame loop never stalls on the mapping chain. A forced
+        adoption waits for the chain's event first."""
         if self._pending_map is None:
             return
         m_new, k, n_created, n_fused, event = self._pending_map
         if not force and event is not None and not event.query():
             return
-        self._pending_map = None
-        self.m = m_new
-        self.stats["mp_created"] += int(n_created)
-        self.stats["mp_fused"] = self.stats.get("mp_fused", 0) + int(n_fused)
-        if self.loop_closer is None:
-            self.add_to_reloc_db(self.m, k)
-            return
-        loops = self.loop_closer.loops_closed
-        before = self.m.kf_pose[k]          # maps are never written in place
-        self.m = self._loop_close(k)
-        if self.loop_closer.loops_closed > loops:
-            # a correction or merge moved the map under the live tracker:
-            # re-gauge T_cur through the corrected keyframe
-            # (T_cur' = T_cur T_k^-1 T_k') and resync the device chain
-            T_rel = self.T_cur @ np.linalg.inv(before.cpu().numpy())
-            self.T_cur = (T_rel @ self.m.kf_pose[k].cpu().numpy()).astype(np.float32)
-            self._T_cur_dev = None
+        with GLOBAL_TIMER.stage("adopt"):
+            if force:
+                with GLOBAL_TIMER.stage("wait.mapping"):
+                    if event is not None:
+                        event.synchronize()
+            self._pending_map = None
+            self.m = m_new
+            self.stats["mp_created"] += int(n_created)
+            self.stats["mp_fused"] = self.stats.get("mp_fused", 0) + int(n_fused)
+            if self.loop_closer is None:
+                self.add_to_reloc_db(self.m, k)
+                return
+            loops = self.loop_closer.loops_closed
+            before = self.m.kf_pose[k]          # maps are never written in place
+            self.m = self._loop_close(k)
+            if self.loop_closer.loops_closed > loops:
+                # a correction or merge moved the map under the live tracker:
+                # re-gauge T_cur through the corrected keyframe
+                # (T_cur' = T_cur T_k^-1 T_k') and resync the device chain
+                T_rel = self.T_cur @ np.linalg.inv(before.cpu().numpy())
+                self.T_cur = (T_rel @ self.m.kf_pose[k].cpu().numpy()).astype(np.float32)
+                self._T_cur_dev = None
 
     def _yaw_only(self) -> bool:
         """Hook: 4-DoF (yaw + translation) essential-graph corrections, for
@@ -596,13 +620,14 @@ class MonoSlam:
     def _loop_close(self, k: int):
         """The loop-closing cascade on keyframe k, with full camera context."""
         c = self.cfg
-        return self.loop_closer.on_keyframe(
-            self.m, k, fix_scale=self._bf() > 0.0 or self._yaw_only(),
-            yaw_only=self._yaw_only(),
-            K=self.K, width=c.camera.width, height=c.camera.height,
-            scale_factor=c.orb.scale_factor, n_levels=c.orb.n_levels,
-            min_proj_matches=c.loop.min_proj_matches,
-            active_map_kfs=self._active_map_kfs)
+        with GLOBAL_TIMER.stage("place_recognition"):
+            return self.loop_closer.on_keyframe(
+                self.m, k, fix_scale=self._bf() > 0.0 or self._yaw_only(),
+                yaw_only=self._yaw_only(),
+                K=self.K, width=c.camera.width, height=c.camera.height,
+                scale_factor=c.orb.scale_factor, n_levels=c.orb.n_levels,
+                min_proj_matches=c.loop.min_proj_matches,
+                active_map_kfs=self._active_map_kfs)
 
     # ------------------------------------------------------------------
     def keyframe_trajectory(self) -> List[Tuple[float, np.ndarray]]:

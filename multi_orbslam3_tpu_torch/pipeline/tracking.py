@@ -24,6 +24,7 @@ from multi_orbslam3_tpu_torch.geometry import se3
 from multi_orbslam3_tpu_torch.map import mapstate as ms
 from multi_orbslam3_tpu_torch.map.mapstate import NO_MP, MapState
 from multi_orbslam3_tpu_torch.opt import pnp, pose_opt
+from multi_orbslam3_tpu_torch.utils.timing import GLOBAL_TIMER
 
 
 class TrackResult(NamedTuple):
@@ -113,21 +114,25 @@ def track_frame(m: MapState, feats: FrameFeatures, T_pred: torch.Tensor,
     """Coarse match at the predicted pose, optimize, re-match finely at the
     optimized pose, optimize again. u_r / bf: optional per-feature stereo
     right-u and baseline * fx, which add the stereo pose edges."""
-    feat_mp, _ = _match_and_invert(m, T_pred, feats, K, radius_coarse,
-                                   width, height, scale_factor, n_levels,
-                                   level_slack=2)
+    with GLOBAL_TIMER.stage("step.match"):
+        feat_mp, _ = _match_and_invert(m, T_pred, feats, K, radius_coarse,
+                                       width, height, scale_factor, n_levels,
+                                       level_slack=2)
     n_matches = torch.sum((feat_mp >= 0).to(torch.int32)).to(torch.int32)
-    T1, feat_mp1, _ = _pose_from_assoc(m, feats, feat_mp, T_pred, K,
-                                       scale_factor, opt_rounds, opt_iters,
-                                       u_r, bf)
-    feat_mp2, visible = _match_and_invert(m, T1, feats, K, radius_fine,
-                                          width, height, scale_factor,
-                                          n_levels, level_slack=1)
+    with GLOBAL_TIMER.stage("step.pose_opt"):
+        T1, feat_mp1, _ = _pose_from_assoc(m, feats, feat_mp, T_pred, K,
+                                           scale_factor, opt_rounds, opt_iters,
+                                           u_r, bf)
+    with GLOBAL_TIMER.stage("step.match"):
+        feat_mp2, visible = _match_and_invert(m, T1, feats, K, radius_fine,
+                                              width, height, scale_factor,
+                                              n_levels, level_slack=1)
     # keep round-1 inlier associations where round 2 found nothing
     feat_mp2 = torch.where(feat_mp2 >= 0, feat_mp2, feat_mp1)
-    T2, feat_mp_f, n2 = _pose_from_assoc(m, feats, feat_mp2, T1, K,
-                                         scale_factor, opt_rounds, opt_iters,
-                                         u_r, bf)
+    with GLOBAL_TIMER.stage("step.pose_opt"):
+        T2, feat_mp_f, n2 = _pose_from_assoc(m, feats, feat_mp2, T1, K,
+                                             scale_factor, opt_rounds, opt_iters,
+                                             u_r, bf)
     return TrackResult(pose=T2, feat_mp=feat_mp_f, n_inliers=n2,
                        n_matches=n_matches, visible=visible)
 
@@ -154,7 +159,8 @@ def pack_result(pose, res, extra=None):
 def fused_step(config, m: MapState, img: torch.Tensor, T_pred: torch.Tensor):
     """Extract + track + landmark found/visible statistics (applied only
     when the track is healthy). Returns (feats, result, updated map)."""
-    feats = extractor.extract_features(img, config)
+    with GLOBAL_TIMER.stage("step.extract"):
+        feats = extractor.extract_features(img, config)
     res = _track_config(m, feats, T_pred, config)
     m2 = ms.update_found_visible(m, res.feat_mp, res.visible)
     ok = res.n_inliers >= config.tracking.min_matches_refkf
@@ -181,7 +187,8 @@ def fused_step_chained(config, m: MapState, img: torch.Tensor,
     """Extract + track with the prediction chain on the device: T_pred =
     T_vel @ T_cur. Returns (feats, result, pose, T_vel_new)."""
     T_pred = T_vel @ T_cur
-    feats = extractor.extract_features(img, config)
+    with GLOBAL_TIMER.stage("step.extract"):
+        feats = extractor.extract_features(img, config)
     res = _track_config(m, feats, T_pred, config)
     return (feats,) + _chain(config, res, T_cur, T_vel, T_pred)
 
@@ -195,8 +202,10 @@ def fused_step_stereo_chained(config, m: MapState, img_l: torch.Tensor,
     Returns (feats, stereo depth, result, pose, T_vel_new)."""
     bf = config.camera.baseline * config.camera.fx
     T_pred = T_vel @ T_cur
-    feats, feats_r = extractor.extract_features_pair(img_l, img_r, config)
-    sd = stereo.stereo_match(feats, feats_r, bf)
+    with GLOBAL_TIMER.stage("step.extract"):
+        feats, feats_r = extractor.extract_features_pair(img_l, img_r, config)
+    with GLOBAL_TIMER.stage("step.stereo"):
+        sd = stereo.stereo_match(feats, feats_r, bf)
     res = _track_config(m, feats, T_pred, config, u_r=sd.u_right, bf=bf)
     return (feats, sd) + _chain(config, res, T_cur, T_vel, T_pred)
 

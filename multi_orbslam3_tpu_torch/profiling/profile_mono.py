@@ -7,10 +7,11 @@ profiling/profile_mono.py).
 
 mono (the default): bench_mono's sequence (752x480, 120 frames, 1,500
 points, seed 5, forward) through MonoSlam.process_frame with loop closing
-on: a warm-up pass, then a timed pass on a fresh system with five hooks
-wrapped by wall-clock timers (tracking.extract_and_track and MonoSlam's
-_track_decide, _dispatch_mapping, _adopt_pending and _loop_close; the
-hooks are restored when the pass ends, also on an exception). Reports fps,
+on: a warm-up pass, then a timed pass on a fresh system with the port's
+tracer on (utils/timing.py), whose spans fill five wall-time buckets
+(BUCKETS: the step's dispatch, the host's decision for the frame, the
+mapping chain's dispatch, adoptions, forced or not, and loop closing; the
+tracer is off again when the pass ends, also on an exception). Reports fps,
 frame ms percentiles, the buckets sorted by total, stats and the hand
 kernels' launches in the timed pass. With --trace, a third pass on a fresh
 system traces frames 60-79 with common.trace_window, so the profiler's
@@ -29,7 +30,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import functools
 import json
 import time
 from typing import Optional, Tuple
@@ -39,6 +39,7 @@ import torch
 
 from multi_orbslam3_tpu_torch import devices
 from multi_orbslam3_tpu_torch.profiling import common
+from multi_orbslam3_tpu_torch.utils.timing import GLOBAL_TIMER
 
 CONFIGS = ("mono", "stereo", "mono_inertial", "collab_2agent")
 # frames (server cycles for collab) traced: [start, stop)
@@ -46,45 +47,30 @@ TRACE_WINDOW = {"mono": (60, 80), "stereo": (50, 70), "mono_inertial": (60, 80),
                 "collab_2agent": (80, 100)}
 
 
-def _hooks():
-    from multi_orbslam3_tpu_torch.pipeline import tracking
-    from multi_orbslam3_tpu_torch.pipeline.system import MonoSlam
-    return ((tracking, "extract_and_track", "extract_and_track_dispatch"),
-            (MonoSlam, "_track_decide", "track_decide_total"),
-            (MonoSlam, "_dispatch_mapping", "dispatch_mapping"),
-            (MonoSlam, "_adopt_pending", "adopt_pending"),
-            (MonoSlam, "_loop_close", "loop_close"))
+# the port's tracer spans (utils/timing.py) behind the mono loop's buckets
+BUCKETS = {"step": "extract_and_track_dispatch", "finalize": "track_decide_total",
+           "mapping": "dispatch_mapping", "adopt": "adopt_pending",
+           "place_recognition": "loop_close"}
 
 
 @contextlib.contextmanager
 def wall_buckets():
-    """Wrap the five hooks with wall-clock timers for the block; yields
-    {bucket: [seconds, ...]}. _adopt_pending(force=True) goes to
-    "adopt_pending_force". The originals are put back when the block
-    ends, however it ends."""
+    """Record the port's tracer over the block; yields {bucket: [seconds,
+    ...]}, filled from the spans of BUCKETS once the block ends. An
+    adoption with a "wait.mapping" child (a forced one) goes to
+    "adopt_pending_force". The tracer is off again when the block ends,
+    however it ends."""
     buckets = {}
-    saved = [(owner, attr, owner.__dict__[attr]) for owner, attr, _ in _hooks()]
-
-    def timed(fn, label):
-        @functools.wraps(fn)
-        def wrapper(*args, **kw):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kw)
-            finally:
-                name = label
-                if label == "adopt_pending" and (kw.get("force") or args[1:2] == (True,)):
-                    name = "adopt_pending_force"
-                buckets.setdefault(name, []).append(time.perf_counter() - t0)
-        return wrapper
-
-    try:
-        for (owner, attr, label), (_, _, fn) in zip(_hooks(), saved):
-            setattr(owner, attr, timed(fn, label))
+    with GLOBAL_TIMER.recording(syncs=False) as tracer:
         yield buckets
-    finally:
-        for owner, attr, fn in saved:
-            setattr(owner, attr, fn)
+    forced = {s.parent for s in tracer.spans if s.name == "wait.mapping"}
+    for i, s in enumerate(tracer.spans):
+        name = BUCKETS.get(s.name)
+        if name is None:
+            continue
+        if i in forced:
+            name = "adopt_pending_force"
+        buckets.setdefault(name, []).append((s.t1 - s.t0) / 1e9)
 
 
 def _loop(name: str, c, n_frames: Optional[int], device: torch.device):

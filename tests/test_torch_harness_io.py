@@ -1,5 +1,5 @@
 """The port's dataset ingest and viewer against the JAX package: the copied
-modules (timing, rectify, euroc, mini_asl) held equal to their originals,
+modules (rectify, euroc, mini_asl) held equal to their originals,
 PNG frames through PIL both ways, both packages' EuRoC loaders on the same
 ASL trees (whichever package wrote them), the stereo loader's rectified
 pairs and geometry, and the numpy-rasterised map and frame images."""
@@ -39,7 +39,7 @@ def _changed_lines(a: str, b: str) -> tuple:
     return removed, added
 
 
-@pytest.mark.parametrize("rel", ["utils/timing.py", "dataio/rectify.py", "dataio/mini_asl.py"])
+@pytest.mark.parametrize("rel", ["dataio/rectify.py", "dataio/mini_asl.py"])
 def test_numpy_only_modules_are_byte_identical_copies(rel):
     assert (JAX_PKG / rel).read_bytes() == (PORT / rel).read_bytes()
 

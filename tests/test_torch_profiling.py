@@ -11,7 +11,6 @@ from multi_orbslam3_tpu.map import mapstate as jms
 from multi_orbslam3_tpu_torch import config as tcfg
 from multi_orbslam3_tpu_torch.map import mapstate as tms
 from multi_orbslam3_tpu_torch.pipeline import tracking
-from multi_orbslam3_tpu_torch.pipeline.system import MonoSlam
 from multi_orbslam3_tpu_torch.profiling import (common, profile_ab_u8, profile_covis,
                                                 profile_mono, profile_scatter,
                                                 profile_stages)
@@ -192,25 +191,27 @@ def test_profile_ab_u8_small():
                              u8_arm=u8)["arms"][0] is u8
 
 
-def test_profile_mono_restores_hooks_after_an_exception(monkeypatch):
-    """The five hooks are back after the timed pass, also when a frame
-    raises inside it."""
-    before = {name: owner.__dict__[name] for owner, name, _ in profile_mono._hooks()}
+def test_profile_mono_switches_the_tracer_off_after_an_exception(monkeypatch):
+    """The timed pass records the port's tracer; when a frame raises inside
+    it the tracer is off again and a later pass records anew."""
+    import warnings
+
+    from multi_orbslam3_tpu_torch.utils.timing import GLOBAL_TIMER
 
     def broken(*args, **kw):
         raise RuntimeError("frame failed")
 
+    shown = warnings.showwarning
     monkeypatch.setattr(tracking, "extract_and_track", broken)
     with pytest.raises(RuntimeError, match="frame failed"):
         profile_mono.run("mono", small_config(), n_frames=6, warmup=False, device="cpu")
-    assert tracking.extract_and_track is broken
-    for owner, name, _ in profile_mono._hooks():
-        if owner is MonoSlam:
-            assert MonoSlam.__dict__[name] is before[name], name
+    assert not GLOBAL_TIMER.on and warnings.showwarning is shown
+    assert GLOBAL_TIMER.spans and GLOBAL_TIMER.spans[-1].t1 is not None
     monkeypatch.undo()
-    profile_mono.run("mono", small_config(), n_frames=4, warmup=False, device="cpu")
-    for owner, name, _ in profile_mono._hooks():
-        assert owner.__dict__[name] is before[name], name
+    out = profile_mono.run("mono", small_config(), n_frames=6, warmup=False, device="cpu")
+    assert not GLOBAL_TIMER.on
+    assert sum(b["n"] for b in out["buckets"] if b["name"] == "extract_and_track_dispatch") \
+        == sum(1 for s in GLOBAL_TIMER.spans if s.name == "step") > 0
 
 
 @pytest.mark.parametrize("name", ["stages", "mono", "ab_u8", "scatter", "covis"])
