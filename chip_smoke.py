@@ -42,7 +42,14 @@ failure:
      4096x4096 (one launch's capacity, a KITTI-size 1241x376 frame) and
      past it in column chunks (4608x4608 at 752x480, 8192x8192 at
      1241x376); K1 also past one launch's 16 levels (the 18 and 24 levels
-     of a stereo pair's 9- and 12-level pyramids, one launch a group).
+     of a stereo pair's 9- and 12-level pyramids, one launch a group);
+   - the motion-only pose optimisation (csrc/pose_opt.cu, one launch a
+     call; no TPU kernel) at the tracking call's shape (1,280 stereo rows,
+     2 x 7) and at 2,000 mono rows (4 x 10): bit for bit its CPU model run
+     on the card, against its plain version (opt/pose_opt.py) the camera
+     centre within 1e-5 m and the inliers equal but for rows within 1e-4
+     of their threshold; its bound is the latency of its dependent
+     iterations, printed beside the bytes it reads (check_pose_opt).
    Each row has call_ms (median time of one call between CUDA events,
    host launch latency included), device_ms (the kernel's own duration:
    torch.profiler's device self time over 50 launches, or 50 launches
@@ -1290,6 +1297,115 @@ def check_k2_stereo(cfg, card: dict, gen) -> dict:
         rows[0], shapes=rows, chunked=[r for r in rows if r["launches_per_call"] > 1])}
 
 
+def pose_case(m: int, stereo: bool, gen, dev) -> dict:
+    """m observations of points 2-16 m ahead of a pose 3 cm / 0.03 rad off
+    the identity start, level-scaled pixel noise, 10% gross outliers, 10%
+    masked and 2% behind the camera; stereo right-u on every row or none."""
+    from multi_orbslam3_tpu_torch.geometry import camera as cam
+    from multi_orbslam3_tpu_torch.geometry import se3
+    rand = lambda *shape: torch.rand(shape, generator=gen, device=dev)  # noqa: E731
+    K = cam.PinholeK(*(torch.tensor(v, device=dev) for v in (458.654, 457.296, 376.0, 240.0)))
+    pts = torch.stack([rand(m) * 12 - 6, rand(m) * 8 - 4, rand(m) * 14 + 2], 1)
+    xi = (rand(6) - 0.5) * 0.06
+    T_true = se3.exp(xi)
+    back = rand(m) < 0.02
+    p_world = se3.apply(se3.inverse(T_true), torch.where(
+        back[:, None], pts * torch.tensor([1.0, 1.0, -1.0], device=dev), pts)).contiguous()
+    level = torch.floor(rand(m) * 8)
+    scale = torch.pow(1.2, level)
+    uv = cam.project(K, pts) + torch.randn((m, 2), generator=gen, device=dev) * scale[:, None]
+    uv = torch.where((rand(m) < 0.1)[:, None], uv + (rand(m, 2) - 0.5) * 80, uv).contiguous()
+    bf = 0.11 * 458.654
+    return dict(T_init=torch.eye(4, device=dev), K=K, p_world=p_world, uv_obs=uv,
+                inv_sigma2=1.0 / (scale * scale), mask=rand(m) >= 0.1,
+                u_r=(uv[:, 0] - bf / pts[:, 2]).contiguous() if stereo else None,
+                bf=bf if stereo else 0.0)
+
+
+def pose_opt_with_fma():
+    """csrc/pose_opt.cu built as kernels.build() builds it but with fused
+    multiply-adds on (without its SOURCE_FLAGS): its C entry, typed as the
+    wrapper's, for the time that the kernel's -fmad=false costs."""
+    import ctypes
+    from multi_orbslam3_tpu_torch.frontend import kernels
+    out = kernels.BUILD_DIR / "pose_opt_fma.so"
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(out),
+                    str(kernels.CSRC / "pose_opt.cu")], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(out)).mo3_pose_optimization
+    real = kernels._lib().pose_optimization
+    fn.argtypes, fn.restype = real.argtypes, real.restype
+    return fn
+
+
+def check_pose_opt(card: dict, gen) -> dict:
+    """The motion-only pose optimisation in one launch (csrc/pose_opt.cu)
+    at the tracking call's shape and at 2,000 mono rows: bit for bit its
+    CPU model on the card, near its plain version, one launch a call, then
+    device_ms (profiler), call_ms (opt/pose_opt.pose_optimization, the
+    intrinsics' stack included) and plain_ms. The bound is the latency of
+    rounds x iters dependent iterations (a block reduction, a 6 x 6 solve
+    in one thread, two barriers each), not the bytes it reads once.
+    device_ms_fma is the same source built with fused multiply-adds on
+    (pose_opt_with_fma), fma_centre_m its centre's distance from the
+    kernel's, fma_equals_model whether it still equals the CPU model."""
+    from multi_orbslam3_tpu_torch.frontend import kernels
+    from multi_orbslam3_tpu_torch.opt import pose_opt
+    dev = torch.device("cuda")
+    lib, with_fma = kernels._lib(), pose_opt_with_fma()
+    centre = lambda T: -(T[:3, :3].T @ T[:3, 3])  # noqa: E731
+    rows = []
+    for m, stereo, rounds, iters in ((1280, True, 2, 7), (2000, False, 4, 10)):
+        c = pose_case(m, stereo, gen, dev)
+        fn = lambda: pose_opt.pose_optimization(**c, rounds=rounds, iters=iters)  # noqa: E731
+        before = kernels.launch_counts()["pose_optimization"]
+        got = fn()
+        torch.cuda.synchronize()
+        if kernels.launch_counts()["pose_optimization"] != before + 1:
+            raise AssertionError(f"pose optimisation {m}: not one launch a call")
+        require_equal(f"pose optimisation {m} (against its CPU model on the card)", got,
+                      pose_opt.pose_opt_kernel_model(**c, rounds=rounds, iters=iters))
+        want = pose_opt.pose_optimization_ref(**c, rounds=rounds, iters=iters)
+        dc = float(torch.linalg.norm(centre(got.pose) - centre(want.pose)))
+        apart = got.inliers != want.inliers
+        near = torch.zeros_like(apart)
+        for T in (got.pose, want.pose):        # rows within 1e-4 of their threshold
+            r = pose_opt._residual_jac(T, c["K"], c["p_world"], c["uv_obs"], c["u_r"],
+                                       c["bf"])[0]
+            chi2 = torch.sum(r * r, dim=-1) * c["inv_sigma2"]
+            th = torch.full_like(chi2, 5.991) if c["u_r"] is None else torch.where(
+                c["u_r"] >= 0, 7.815, 5.991)
+            near |= torch.abs(chi2 - th) <= 1e-4 * th
+        differ = int(apart.sum())
+        if dc > 1e-5 or bool((apart & ~near).any()):
+            raise AssertionError(f"pose optimisation {m}: centre {dc} m from the plain "
+                                 f"version's, {differ} inlier flags differ")
+        nbytes = m * (12 + 8 + 4 + 1 + (4 if stereo else 0) + 1) + 64 + 16 + 72
+        ms, how = device_ms(fn, "pose_opt_kernel")
+        lib.pose_optimization, without_fma = with_fma, lib.pose_optimization
+        try:
+            got_fma = fn()
+            ms_fma, _ = device_ms(fn, "pose_opt_kernel")
+        finally:
+            lib.pose_optimization = without_fma
+        fma_centre = float(torch.linalg.norm(centre(got_fma.pose) - centre(got.pose)))
+        rows.append({
+            "shape": [m], "inputs": ("stereo" if stereo else "mono") + f", {rounds} x {iters}",
+            "launches_per_call": 1, "device_launches": device_launches(fn),
+            "inliers": int(got.n_inliers), "centre_err_m": dc, "inliers_differ": differ,
+            "max_abs_err": 0.0, "device_ms": ms, "device_ms_from": how,
+            "us_per_iteration": 1e3 * ms / (rounds * iters + rounds),
+            "device_ms_fma": ms_fma, "fma_centre_m": fma_centre,
+            "fma_equals_model": all(torch.equal(a, b) for a, b in zip(got_fma, got)),
+            "call_ms": call_ms(fn), "plain_ms": call_ms(lambda: pose_opt.pose_optimization_ref(
+                **c, rounds=rounds, iters=iters), reps=5),
+            "bytes": nbytes, "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": None, "bound_by": "latency",
+            "limit": f"{rounds * iters} dependent iterations and {rounds} classifications"})
+    emit("kernel_pose_optimization", exact_to_model=True, shapes=rows)
+    return {"pose_optimization": dict(rows[0], shapes=rows)}
+
+
 def check_matcher_memory(cfg, gen) -> None:
     """The matchers allocate no N x M tensor on the GPU."""
     from multi_orbslam3_tpu_torch.frontend import matcher
@@ -1374,6 +1490,7 @@ def phase_kernels(frame: np.ndarray, frame_right: np.ndarray, cfg, card: dict) -
     rows.update(check_k2_matrix(cfg, card, gen))
     rows.update(check_k2_fused(cfg, card, gen))
     rows.update(check_k2_stereo(cfg, card, gen))
+    rows.update(check_pose_opt(card, gen))
     for name, arena in check_k2_arena(card, gen).items():
         rows[name]["arena_shapes"] = arena
     check_k2_edges(gen)
@@ -1495,11 +1612,17 @@ def ate_of(slam, seq, ok_idx, offset: int = 0, with_scale: bool = True) -> tuple
 
 
 def check_launches(launches: dict, problems: list, k1_expected=None,
-                   both_fused: bool = False, stereo_expected=None) -> None:
-    """K1 and a fused K2 kernel must have been launched on the path: K1
-    exactly k1_expected times where that is given (once a frame), with
-    both_fused the validity and the projection match each at least once,
-    and the stereo match exactly stereo_expected times where given."""
+                   both_fused: bool = False, stereo_expected=None,
+                   pose_expected=None) -> None:
+    """K1, a fused K2 kernel and the pose optimisation must have been
+    launched on the path: K1 exactly k1_expected times where that is given
+    (once a frame), with both_fused the validity and the projection match
+    each at least once, the stereo match exactly stereo_expected times and
+    the pose optimisation exactly pose_expected times where given."""
+    pose = launches["pose_optimization"]
+    if pose <= 0 or (pose_expected is not None and pose != pose_expected):
+        problems.append(f"the pose optimisation was launched {pose} times on this path"
+                        + (f", not {pose_expected}" if pose_expected is not None else ""))
     if stereo_expected is not None and \
             launches["hamming_best_two_stereo"] != stereo_expected:
         problems.append(f"K2's stereo match was launched "
@@ -1805,7 +1928,10 @@ def phase_stereo(cfg, seq, device: str = "cuda") -> tuple:
            "ate_over_span": ate_rmse / span, **latency_stats(frame_ms, wall),
            "frame_parts": frame_parts, "launches": launches}
     problems = []
-    check_launches(launches, problems, k1_expected=F, both_fused=True, stereo_expected=F)
+    # the first frame builds the map; each later one is tracked by the
+    # fused step, two pose optimisations, and none falls back here
+    check_launches(launches, problems, k1_expected=F, both_fused=True, stereo_expected=F,
+                   pose_expected=2 * (F - 1))
     if slam.state != TrackState.OK:
         problems.append(f"final state {slam.state.name}")
     if len(states) != F or len(ok_idx) < 70:
@@ -1893,7 +2019,7 @@ def phase_stereo_wide(seq, device: str = "cuda") -> tuple:
            **latency_stats(frame_ms, wall), "launches": launches}
     problems = []
     check_launches(launches, problems, k1_expected=k1_per_frame * F, both_fused=True,
-                   stereo_expected=stereo_per_frame * F)
+                   stereo_expected=stereo_per_frame * F, pose_expected=2 * (F - 1))
     if res["mp_valid"] >= WIDE_MAX_MAPPOINTS:
         problems.append("the map's landmark capacity filled")
     if len(ok_idx) < F - 2:
@@ -1920,7 +2046,8 @@ def phase_rgbd(cfg, seq, n_frames: int = 40, device: str = "cuda") -> dict:
            "mp_created": slam.stats["mp_created"], "ate_rmse_no_scale": ate_rmse,
            "span": span, **latency_stats(frame_ms, wall), "launches": launches}
     problems = []
-    check_launches(launches, problems, k1_expected=n_frames, stereo_expected=0)
+    check_launches(launches, problems, k1_expected=n_frames, stereo_expected=0,
+                   pose_expected=2 * (n_frames - 1))
     if slam.state != TrackState.OK:
         problems.append(f"final state {slam.state.name}")
     if len(ok_idx) < 35:

@@ -25,6 +25,13 @@
     pyramid level between a left and a right feature set; the row results):
     a row-band search over a per-row index of the right set built in shared
     memory (``csrc/stereo_band.cu``; chunks of STEREO_CHUNK as above).
+- ``pose_optimization``: the motion-only pose optimisation of one pose,
+  every Gauss-Newton iteration and inlier re-classification of its
+  rounds x iters schedule, in one launch of one block
+  (``csrc/pose_opt.cu``; no Pallas kernel: the port of the JAX package's
+  jitted loop). ``opt/pose_opt.py`` dispatches to it and holds its plain
+  version and the CPU model of its arithmetic.
+
   Beside each search that visits columns out of column order, a CPU model
   of its visit (``stereo_band_candidates``, ``projection_window_candidates``)
   and of the search on it (``hamming_best_two_stereo_banded_ref``,
@@ -67,10 +74,13 @@ from multi_orbslam3_tpu_torch.frontend import fast
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fast_nms.cu", "hamming.cu", "hamming_mma.cu", "stereo_band.cu")
+SOURCES = ("fast_nms.cu", "hamming.cu", "hamming_mma.cu", "stereo_band.cu", "pose_opt.cu")
 HEADERS = ("match_core.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the pose optimisation rounds each product and sum on its own, as the
+# plain version's tensor ops do (its CPU model repeats it op for op)
+SOURCE_FLAGS = {"pose_opt.cu": ("-fmad=false",)}
 BIG = 10_000          # distance of a masked pair (csrc/match_core.cuh)
 MAX_LEVELS = 16       # levels of one K1 launch (its table, csrc/fast_nms.cu)
 STEREO_CHUNK = 4096   # right features of one stereo launch (its index, csrc/stereo_band.cu)
@@ -85,12 +95,13 @@ PROJ_LIMIT = 2.0 ** 20  # |u| or |v| at or above this: the overflow list
 VALID_ROWS = 128      # compacted rows a tile of the validity search (csrc/hamming_mma.cu)
 VALID_CHUNK = 128     # compacted columns a stage
 VALID_MAX_SPLITS = 8  # column splits of one row tile
+POSE_THREADS = 256    # threads of the pose optimisation's one block (csrc/pose_opt.cu)
 
 _lib_handle = None
 _lib_lock = threading.Lock()
 _LAUNCHES = {"fast_score_nms_levels": 0, "hamming_matrix": 0,
              "hamming_best_two_valid": 0, "hamming_best_two_projection": 0,
-             "hamming_best_two_stereo": 0}
+             "hamming_best_two_stereo": 0, "pose_optimization": 0}
 
 
 def _nvcc() -> str:
@@ -108,6 +119,7 @@ def _source_hash() -> str:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     return h.hexdigest()[:16]
 
 
@@ -128,7 +140,7 @@ def build() -> dict:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         procs.append((name, tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / name)],
+            [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-o", tmp, str(CSRC / name)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     log, failed = [], []
     for name, tmp, proc in procs:
@@ -150,14 +162,16 @@ def _lib():
     with _lib_lock:
         if _lib_handle is None:
             paths = build()["paths"]
-            fast_so, ham_so, mma_so, band_so = (ctypes.CDLL(str(paths[n])) for n in SOURCES)
+            fast_so, ham_so, mma_so, band_so, pose_so = (ctypes.CDLL(str(paths[n]))
+                                                         for n in SOURCES)
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             fns = types.SimpleNamespace(
                 fast_score_nms_levels=fast_so.mo3_fast_score_nms_levels,
                 hamming_matrix=mma_so.mo3_hamming_matrix,
                 hamming_best_two_valid=mma_so.mo3_hamming_best_two_valid,
                 hamming_best_two_projection=ham_so.mo3_hamming_best_two_projection,
-                hamming_best_two_stereo=band_so.mo3_hamming_best_two_stereo)
+                hamming_best_two_stereo=band_so.mo3_hamming_best_two_stereo,
+                pose_optimization=pose_so.mo3_pose_optimization)
             fns.fast_score_nms_levels.argtypes = [vp, vp, vp, vp, ci, cf, vp]
             fns.hamming_matrix.argtypes = [vp, vp, vp, ci, ci, vp]
             fns.hamming_best_two_valid.argtypes = [
@@ -168,6 +182,8 @@ def _lib():
             fns.hamming_best_two_stereo.argtypes = [
                 vp, vp, vp, vp, vp, ci, vp, vp, vp, vp, ci, ci, ci, cf, cf, ci,
                 vp, vp, vp, vp]
+            fns.pose_optimization.argtypes = [
+                vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, cf, cf, vp, vp, vp, vp, vp]
             for fn in vars(fns).values():
                 fn.restype = ci
             _lib_handle = fns
@@ -885,6 +901,49 @@ def hamming_best_two_stereo(descL: torch.Tensor, uvL: torch.Tensor,
                 int(c0 > 0), STEREO_MIN_DISPARITY, float(max_disparity),
                 STEREO_LEVEL_SLACK, idx.data_ptr(), best.data_ptr(), second.data_ptr())
     return idx, best, second
+
+
+# ----------------------------------------------------------------------
+# The motion-only pose optimisation
+# ----------------------------------------------------------------------
+
+def pose_optimization(T_init: torch.Tensor, cam: torch.Tensor, p_world: torch.Tensor,
+                      uv_obs: torch.Tensor, inv_sigma2: torch.Tensor, mask: torch.Tensor,
+                      rounds: int, iters: int, chi2_th: float, u_r=None, bf: float = 0.0):
+    """The whole of opt/pose_opt.py's pose_optimization for CUDA tensors,
+    one launch of csrc/pose_opt.cu: T_init (4, 4) float32, cam (4,) float32
+    (fx, fy, cx, cy), p_world (M, 3), uv_obs (M, 2), inv_sigma2 (M,) float32,
+    mask (M,) bool, u_r None or (M,) float32 (stereo right-u, -1 monocular).
+    Returns (pose (4, 4), inliers (M,) bool, n_inliers () int32, chi2 ()
+    float32), device tensors: nothing is read back. Any M is one launch.
+    It runs on p_world's card, whichever card is current: the checks and
+    the launch's stream are that card's (each agent of the multi-card dry
+    run keeps its tensors on a card of its own)."""
+    name = "pose_optimization"
+    m = p_world.shape[0]
+    f32 = torch.float32
+    dev = p_world.device
+    with torch.cuda.device(dev):
+        _check_cuda(name, T_init, f32, (4, 4))
+        _check_cuda(name, cam, f32, (4,))
+        _check_cuda(name, p_world, f32, (m, 3))
+        _check_cuda(name, uv_obs, f32, (m, 2))
+        _check_cuda(name, inv_sigma2, f32, (m,))
+        _check_cuda(name, mask, torch.bool, (m,))
+        if u_r is not None:
+            _check_cuda(name, u_r, f32, (m,))
+        if rounds < 0 or iters < 0:
+            raise ValueError(f"{name}: rounds and iters must be >= 0, got {rounds} x {iters}")
+        pose = torch.empty((4, 4), dtype=f32, device=dev)
+        inliers = torch.empty(m, dtype=torch.bool, device=dev)
+        n_inliers = torch.empty((), dtype=torch.int32, device=dev)
+        chi2 = torch.empty((), dtype=f32, device=dev)
+        _launch(name, T_init.data_ptr(), cam.data_ptr(), p_world.data_ptr(),
+                uv_obs.data_ptr(), inv_sigma2.data_ptr(), mask.data_ptr(),
+                None if u_r is None else u_r.data_ptr(), m, int(rounds), int(iters),
+                float(chi2_th), float(bf), pose.data_ptr(), inliers.data_ptr(),
+                n_inliers.data_ptr(), chi2.data_ptr())
+    return pose, inliers, n_inliers, chi2
 
 
 def reset_launch_counts() -> None:

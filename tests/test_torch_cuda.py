@@ -872,3 +872,167 @@ def test_bench_kernels_dispatches_the_kernels_and_they_equal_the_plain_versions(
     assert out["dispatched"] == "cuda" and out["fast_equal"] and out["hamming_equal"], out
     assert counts["fast_score_nms_levels"] > 0 and counts["hamming_matrix"] > 0, counts
     assert out["codec"]["native_available"]
+
+
+# ----------------------------------------------------------------------
+# The motion-only pose optimisation (csrc/pose_opt.cu)
+# ----------------------------------------------------------------------
+
+POSE_CASES = [(0, "stereo", 2, 7), (1, "mono", 4, 10), (1, "stereo", 2, 7),
+              (1280, "stereo", 2, 7), (1280, "mixed", 3, 8), (1280, "mono", 4, 10),
+              (2000, "mono", 4, 10), (2000, "stereo", 3, 8), (3000, "mixed", 2, 7),
+              (9000, "stereo", 2, 7)]
+
+
+def _pose_case(m, kind, seed, dev):
+    """tests/test_torch_pose_opt_kernel.py's case on the card."""
+    from test_torch_pose_opt_kernel import _case
+    from multi_orbslam3_tpu_torch.geometry import camera as cam
+    c = _case(m, seed, kind)
+    out = {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in c.items()}
+    out["K"] = cam.PinholeK(*(v.to(dev) for v in c["K"]))
+    return out
+
+
+def _same(got, want) -> bool:
+    return all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("m,kind,rounds,iters", POSE_CASES)
+def test_pose_opt_kernel_equals_its_model_and_the_plain_version(dev, m, kind, rounds, iters):
+    """One launch a call; bit for bit the CPU model run on the card (torch's
+    float32 ops there round as the kernel's do); against the plain version
+    the centre within 1e-5 m (one row: 1e-4, the module docstring of
+    test_torch_pose_opt_kernel.py) and the inliers equal but for rows
+    within 1e-4 of their threshold; 9,000 rows reach past the registers
+    and shared memory into rows read again from global memory."""
+    from test_torch_pose_opt_kernel import assert_close_to_plain
+    from multi_orbslam3_tpu_torch.opt import pose_opt
+    c = _pose_case(m, kind, 100 * m + 10 * rounds + iters, dev)
+    before = kernels.launch_counts()["pose_optimization"]
+    got = pose_opt.pose_optimization(**c, rounds=rounds, iters=iters)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["pose_optimization"] == before + 1
+    model = pose_opt.pose_opt_kernel_model(**c, rounds=rounds, iters=iters)
+    assert _same(got, model), (got, model)
+    want = pose_opt.pose_optimization_ref(**c, rounds=rounds, iters=iters)
+    assert_close_to_plain(got, want, c, centre_m=1e-4 if m == 1 else 1e-5)
+    again = pose_opt.pose_optimization(**c, rounds=rounds, iters=iters)
+    assert _same(got, again)
+
+
+def test_pose_opt_kernel_is_one_device_launch_and_sync_free(dev):
+    """One device launch (a CUDA graph of one call), no sync flagged under
+    sync debug mode "error", from the kernel's wrapper and from
+    pose_optimization (which adds the stack of the intrinsics)."""
+    from multi_orbslam3_tpu_torch.opt import pose_opt
+    from multi_orbslam3_tpu_torch.profiling import common
+    c = _pose_case(1280, "stereo", 5, dev)
+    cam4 = torch.stack(list(c["K"]))
+    args = (c["T_init"], cam4, c["p_world"], c["uv_obs"], c["inv_sigma2"], c["mask"], 2, 7,
+            5.991, c["u_r"], c["bf"])
+    assert common.graph_launches(lambda: kernels.pose_optimization(*args), dev) == 1
+    assert common.graph_launches(lambda: pose_opt.pose_optimization(**c, rounds=2, iters=7),
+                                 dev) == 2
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pose_opt.pose_optimization(**c, rounds=2, iters=7)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_pose_opt_kernel_replays_from_a_cuda_graph(dev):
+    """Captured once, replayed on moved observations and a new start pose:
+    equal to the eager call on those inputs."""
+    from multi_orbslam3_tpu_torch.opt import pose_opt
+    c = _pose_case(1280, "mixed", 9, dev)
+    pose_opt.pose_optimization(**c, rounds=2, iters=7)          # set-up before capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = pose_opt.pose_optimization(**c, rounds=2, iters=7)
+    c["uv_obs"].add_(0.75)
+    c["T_init"][0, 3] = 0.05
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _same(captured, pose_opt.pose_optimization(**c, rounds=2, iters=7))
+
+
+def test_pose_opt_kernel_on_a_card_that_is_not_current(dev):
+    """Tensors on the last card while the first is current (each agent of
+    the multi-card dry run keeps its own card): the kernel runs there, on
+    that card's stream, and gives what it gives on the first card."""
+    from multi_orbslam3_tpu_torch.opt import pose_opt
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA GPUs")
+    other = torch.device("cuda", n - 1)
+    c0 = _pose_case(1280, "stereo", 13, torch.device("cuda", 0))
+    c1 = _pose_case(1280, "stereo", 13, other)
+    with torch.cuda.device(0):
+        got = pose_opt.pose_optimization(**c1, rounds=2, iters=7)
+        want = pose_opt.pose_optimization(**c0, rounds=2, iters=7)
+    assert all(t.device == other for t in got)
+    torch.cuda.synchronize(other)
+    assert _same([t.cpu() for t in got], [t.cpu() for t in want])
+
+
+def test_pose_opt_kernel_rejects_what_it_does_not_take(dev):
+    c = _pose_case(64, "stereo", 1, dev)
+    cam4 = torch.stack(list(c["K"]))
+    args = [c["T_init"], cam4, c["p_world"], c["uv_obs"], c["inv_sigma2"], c["mask"], 2, 7,
+            5.991, c["u_r"], c["bf"]]
+    for i, bad in ((0, c["T_init"].double()), (2, c["p_world"][:, :2].contiguous()),
+                   (5, c["mask"].to(torch.uint8)), (9, c["u_r"][:10]),
+                   (2, c["p_world"].cpu())):
+        with pytest.raises(ValueError):
+            kernels.pose_optimization(*(args[:i] + [bad] + args[i + 1:]))
+    with pytest.raises(ValueError):
+        kernels.pose_optimization(*(args[:6] + [-1] + args[7:]))
+
+
+def test_pose_opt_kernel_on_the_cells_tracking_calls(dev, monkeypatch):
+    """The cell euroc_stereo.revisit (slambench/): 40 frames of its traffic
+    through StereoSlam, every pose optimisation they call recorded, each
+    held bit for bit to the model and to the plain version as above; the
+    rows whose inlier flag differs are counted (all near a threshold)."""
+    from test_torch_pose_opt_kernel import assert_close_to_plain
+    from multi_orbslam3_tpu_torch.geometry import camera as cam
+    from multi_orbslam3_tpu_torch.opt import pose_opt
+    from multi_orbslam3_tpu_torch.pipeline.stereo_system import StereoSlam
+    from slambench.harness import cell as cellm
+    from slambench.harness import traffic
+    c = cellm.load_cell("euroc_stereo.revisit")
+    cfg = cellm.system_config(c.config)
+    tfc = dict(c.traffic, frames_per_agent=40)
+    fr = traffic.generate(tfc, cfg.camera, 2 ** 31 + 7, dev)[0]
+    calls, real = [], kernels.pose_optimization
+
+    def record(*args):
+        out = real(*args)
+        calls.append(([a.clone() if isinstance(a, torch.Tensor) else a for a in args],
+                      [o.clone() for o in out]))
+        return out
+
+    monkeypatch.setattr(kernels, "pose_optimization", record)
+    slam = StereoSlam(cfg, enable_loop_closing=True, device=dev)
+    for i in range(fr.left.shape[0]):
+        slam.process_frame_stereo_pipelined(fr.left[i], fr.right[i], float(fr.timestamps[i]))
+    slam.finish()
+    monkeypatch.undo()
+    assert len(calls) >= 60
+    differ = 0
+    for (T0, cam4, pw, uv, s2, mask, rounds, iters, chi2_th, u_r, bf), out in calls:
+        K = cam.PinholeK(*cam4.unbind(0))
+        c = dict(T_init=T0, K=K, p_world=pw, uv_obs=uv, inv_sigma2=s2, mask=mask, u_r=u_r,
+                 bf=bf)
+        got = pose_opt.PoseOptResult(*out)
+        assert _same(got, pose_opt.pose_opt_kernel_model(**c, rounds=rounds, iters=iters,
+                                                         chi2_th=chi2_th))
+        want = pose_opt.pose_optimization_ref(**c, rounds=rounds, iters=iters,
+                                              chi2_th=chi2_th)
+        differ += assert_close_to_plain(got, want, c)
+    print(f"pose optimisations: {len(calls)}; inlier rows that differ (near a threshold): "
+          f"{differ}")

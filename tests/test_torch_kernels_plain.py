@@ -126,10 +126,14 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     kernels.hamming_best_two_valid(d, v, d, v)
     kernels.hamming_best_two_projection(d, uv, v, 3.0, lv, d, uv, v, lv, 1)
     kernels.hamming_best_two_stereo(d, uv, v, lv, torch.ones(4), d, uv, v, lv, 128.0)
+    from multi_orbslam3_tpu_torch.geometry.camera import PinholeK
+    from multi_orbslam3_tpu_torch.opt import pose_opt
+    pose_opt.pose_optimization(torch.eye(4), PinholeK(*torch.ones(4).unbind(0)),
+                               torch.ones((4, 3)), uv, torch.ones(4), v, rounds=1, iters=1)
     counts = kernels.launch_counts()
     assert set(counts) == {"fast_score_nms_levels", "hamming_matrix",
                            "hamming_best_two_valid", "hamming_best_two_projection",
-                           "hamming_best_two_stereo"}
+                           "hamming_best_two_stereo", "pose_optimization"}
     assert not any(counts.values())
 
 
