@@ -1,28 +1,20 @@
-"""How a cell drives the port, by the configuration's `system`:
-
-- "stereo": one ``StereoSlam`` with loop closing on; a frame is one call of
-  ``process_frame_stereo_pipelined``.
-
-A driver is a closed loop: the next frame is fed when the previous call
-returns. ``install`` wraps the port's layer entries with spans and the
-captures that the comparison reads; the recorder restores them."""
+"""The system "stereo": one ``StereoSlam`` with loop closing on; a round
+is one frame, one call of ``process_frame_stereo_pipelined``. The
+comparison samples its fused steps ("step"), its K2 searches ("k2proj.*",
+"k2valid.*") and its place-recognition queries ("bow")."""
 
 from __future__ import annotations
 
 from typing import List
 
+from slambench.drivers import TraceCapture
 from slambench.harness.traffic import AgentFrames
 
 
-class TraceCapture:
-    """K1 and K2 calls of the traced frames (for the rooflines)."""
+class Driver:
+    checked = "step"
+    compared = ("step", "k2", "bow")
 
-    def __init__(self):
-        self.on = False
-        self.k1, self.k2proj, self.k2valid = [], [], []
-
-
-class StereoDriver:
     def __init__(self, cfg, frames: List[AgentFrames], device, spans, capture):
         from multi_orbslam3_tpu_torch.pipeline.stereo_system import StereoSlam
         self.cfg, self.frames, self.device = cfg, frames, device
@@ -111,9 +103,3 @@ class StereoDriver:
     def release(self) -> None:
         self.slam = None
 
-
-def make_driver(config: dict, cfg, frames, device, spans, capture):
-    system = config["system"]
-    if system == "stereo":
-        return StereoDriver(cfg, frames, device, spans, capture)
-    raise ValueError(f"unknown system {system!r} in the configuration file")

@@ -1,5 +1,7 @@
 """A cell of BENCHMARK.json: its configuration and traffic files, found by
-name, and the port's SystemConfig built from the configuration file."""
+name, the roots its code files are looked for under
+(slambench/harness/files.py), and the port's SystemConfig built from the
+configuration file."""
 
 from __future__ import annotations
 
@@ -7,6 +9,8 @@ import dataclasses
 import json
 from pathlib import Path
 from typing import Optional
+
+from slambench.harness import files
 
 ROOT = Path(__file__).resolve().parent.parent
 REPO = ROOT.parent
@@ -23,6 +27,7 @@ class Cell:
     end_to_end: list        # BENCHMARK.json metric entries of this cell
     per_layer: list
     check: dict             # slambench/checks/<cell>.json: the compared numbers' limits
+    roots: tuple            # where its drivers/, compare/, generators/ files are looked for
 
 
 def _applies(metric: dict, cell: str) -> bool:
@@ -48,7 +53,7 @@ def load_cell(name: str, bench_path: Optional[Path] = None, root: Optional[Path]
                 chips=int(w["chips"]), config=config, traffic=traffic,
                 end_to_end=[m for m in bench["end_to_end"] if _applies(m, name)],
                 per_layer=[m for m in bench["per_layer"] if _applies(m, name)],
-                check=check)
+                check=check, roots=files.roots(root))
 
 
 def system_config(config: dict):

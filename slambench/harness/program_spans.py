@@ -7,10 +7,12 @@ of the frame loop with its parent span and the id of the frame it works
 for, on the host clock (time.perf_counter_ns), and ``host_syncs`` counts
 the host's synchronisations under the innermost span. ``Records`` holds
 what it recorded over one stretch of a run: the window, or the traced
-frames. A metric reader finds them on its context as ``ctx.program`` (the
-window) and ``ctx.program_traced`` (the traced frames); where the context
-has none (a run that did not switch the tracer on, or a port without it),
-every reader here returns None.
+frames. ``Recorder`` switches the tracer on over such a stretch
+(slambench/run.py: the window with spans only, the traced frames with host
+syncs too; only in a `--trace 1` run). A metric reader finds them on its
+context as ``ctx.program`` (the window) and ``ctx.program_traced`` (the
+traced frames); where the context has none (a `--trace 0` run, or a port
+without the tracer), every reader here returns None.
 
 ``launch_host_ns`` gives each traced device event the host time of the
 runtime call that launched it, through kineto's correlation id, mapped
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import bisect
 import collections
+import contextlib
 from typing import Optional
 
 from slambench.harness.trace import _DEVICE_ACTIVITY, MARKER, union_intervals
@@ -82,6 +85,31 @@ class Records:
         start = {s.frame: s.t0 for s in self.spans if s.name == "frame"}
         return [(s.t1 - start[s.frame]) / 1e6 for s in self.spans
                 if s.name == "finalize" and s.frame in start]
+
+
+class Recorder:
+    """The port's tracer over named stretches of a run: ``with
+    rec.stretch(name, syncs):`` records the block (host syncs too where
+    `syncs`), then keeps its Records under ``rec.records[name]`` and the
+    tracer's summary() under ``rec.summaries[name]``. With no tracer (None)
+    it records nothing."""
+
+    def __init__(self, tracer):
+        self.tracer = tracer
+        self.records, self.summaries = {}, {}
+
+    @contextlib.contextmanager
+    def stretch(self, name: str, syncs: bool):
+        if self.tracer is None:
+            yield
+            return
+        self.tracer.start(syncs=syncs)
+        try:
+            yield
+        finally:
+            self.tracer.stop()
+            self.records[name] = Records.take(self.tracer)
+            self.summaries[name] = self.tracer.summary()
 
 
 def window(ctx) -> Optional[Records]:

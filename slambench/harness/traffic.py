@@ -1,6 +1,8 @@
-"""The one traffic generator: a textured-landmark world drawn from the seed
-on the device, each agent's trajectory from the traffic file, and every
-frame rendered on the device.
+"""The traffic generator of a traffic file that names none: a
+textured-landmark world drawn from the seed on the device, each agent's
+trajectory from the traffic file, and every frame rendered on the device.
+A traffic file that names a "generator" is made by
+``generators/<generator>.py`` instead (slambench/generators/__init__.py).
 
 The world and the renderer are a PyTorch copy of the port's
 ``dataio/synthetic.py`` (make_world, circular_pose_at, render_frame):
@@ -16,10 +18,12 @@ one, noise off, pixel for pixel.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Optional
 
 import numpy as np
 import torch
+
+from slambench.harness import files
 
 PATCH = 9
 
@@ -144,9 +148,15 @@ def _frames(points, patches, T_cw: np.ndarray, K, width, height, noise_std,
     return out
 
 
-def generate(traffic: dict, camera, seed: int, device, chunk: int = 16) -> List[AgentFrames]:
-    """Every agent's frames of a traffic file, rendered on `device`.
-    camera: the port's CameraConfig (size, intrinsics, baseline)."""
+def generate(traffic: dict, camera, seed: int, device, chunk: int = 16,
+             where: tuple = (files.ROOT,)) -> list:
+    """Every agent's frames of a traffic file, made on `device`: by the
+    file's "generator" (`generators/<name>.py` under the cell's roots
+    `where`), else rendered here as AgentFrames. camera: the port's
+    CameraConfig (size, intrinsics, baseline)."""
+    if "generator" in traffic:
+        return files.load("generators", traffic["generator"], where).generate(
+            traffic, camera, seed, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     w = traffic.get("world", {})

@@ -9,7 +9,15 @@ that drives every path the window uses), then a closed-loop window of
 lines give the set-up's parts and the window's work; the last is one JSON
 object. With --trace 1 the line carries the per-layer metrics, read from
 host spans over the window and from a torch.profiler trace of a fixed
-number of frames run after the window closes. The numbers compared with the reference close stderr.
+number of frames run after the window closes; the port's own tracer
+(multi_orbslam3_tpu_torch/utils/timing.py) records its spans over the
+window and its spans and host syncs over the traced frames, and two lines
+come before the result: `{"spans": ...}`, the traced frames' device idle
+ms, launches and host syncs by innermost program span
+(slambench/harness/program_spans.tables; null without traced frames), and
+`{"span_table": ...}`, the tracer's summary() of the window. With
+--trace 0 the tracer stays off. The numbers compared with the reference
+close stderr.
 
 The run refuses, printing no result, where there is no CUDA device (or
 fewer than the cell asks for), where the port is not beside this package,
@@ -23,15 +31,12 @@ import time
 T_PROCESS = time.perf_counter()     # process start, as near as Python sees it
 
 import argparse  # noqa: E402
-import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
-from pathlib import Path  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "multi_orbslam3_tpu")
-METRICS_DIR = Path(__file__).resolve().parent / "metrics"
 
 
 class Ctx:
@@ -48,11 +53,8 @@ def forbidden_modules() -> list:
 
 
 def read_metric(name: str, ctx: Ctx):
-    spec = importlib.util.spec_from_file_location(f"slambench_metric_{name}",
-                                                  METRICS_DIR / f"{name}.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read(ctx)
+    from slambench.harness import files
+    return files.load("metrics", name).read(ctx)
 
 
 def card_info(torch) -> dict:
@@ -108,8 +110,9 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device_name: str 
     reference in TF32 in the port's place) on the same window's calls."""
     import torch
 
+    from slambench import drivers
     from slambench.harness import cell as cellm
-    from slambench.harness import check, drivers, traffic
+    from slambench.harness import check, program_spans, traffic
     from slambench.harness.capture import Capture
     from slambench.harness.spans import Spans
     from slambench.harness.trace import TraceWindow
@@ -137,13 +140,14 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device_name: str 
 
     spans = Spans()
     capture = Capture(seed, conf.get("capture", {}))
+    program = program_spans.Recorder(program_spans.tracer() if trace else None)
     t = time.perf_counter()
-    frames = traffic.generate(tfc, cfg.camera, seed, device)
+    frames = traffic.generate(tfc, cfg.camera, seed, device, where=c.roots)
     if on_card:
         torch.cuda.synchronize()
     setup["render_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    drv = drivers.make_driver(conf, cfg, frames, device, spans, capture)
+    drv = drivers.make_driver(conf, cfg, frames, device, spans, capture, c.roots)
     setup["systems_s"] = time.perf_counter() - t      # vocabulary and map arenas
     with spans:
         if fault is not None:
@@ -160,22 +164,28 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device_name: str 
         emit(json.dumps({"setup": setup}))
         probe_ms = [host_probe_ms(device)]
 
-        # the window
+        # the window; a traced run's window leaves the traced frames for
+        # after it, where a fast host would otherwise spend them
+        trace_rounds = int(tfc["trace"]["rounds"])
+        traced_run = trace and on_card
         work0 = drv.work()
-        spans.on = capture.on = True
-        if on_card:
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        frames_done = 0
-        while time.perf_counter() - t0 < seconds:
-            n = drv.round()
-            if n == 0:
-                break
-            frames_done += n
-        if on_card:
-            torch.cuda.synchronize()
-        window_s = time.perf_counter() - t0
-        spans.on = capture.on = False
+        with program.stretch("window", syncs=False):
+            spans.on = capture.on = True
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames_done = 0
+            while time.perf_counter() - t0 < seconds:
+                n = drv.round()
+                if n == 0:
+                    break
+                frames_done += n
+                if traced_run and drv.frames_left() <= trace_rounds:
+                    break
+            if on_card:
+                torch.cuda.synchronize()
+            window_s = time.perf_counter() - t0
+            spans.on = capture.on = False
         probe_ms.append(host_probe_ms(device))
         work = delta(drv.work(), work0)
         work["frames_left"] = drv.frames_left()
@@ -185,11 +195,10 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device_name: str 
         # the traced frames: after the window, so that neither the
         # profiler's overhead nor the reading of its events falls in it
         tw, trace_frames = None, 0
-        trace_rounds = int(tfc["trace"]["rounds"])
-        if trace and on_card and drv.frames_left() >= trace_rounds:
+        if traced_run and drv.frames_left() >= trace_rounds:
             tw = TraceWindow()
             drv.tcap.on = spans.on = True
-            with spans.aside(), tw:
+            with spans.aside(), tw, program.stretch("traced", syncs=True):
                 for _ in range(trace_rounds):
                     trace_frames += drv.round()
             drv.tcap.on = spans.on = False
@@ -198,9 +207,10 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device_name: str 
     # the per-layer reading, then the program's state is freed and the
     # reference runs
     card = card_info(torch) if (trace and on_card) else None
+    traced = program.records.get("traced")
     ctx = Ctx(spans=spans, window_s=window_s, frames=frames_done, work=work,
               setup_s=setup_s, trace=tw, trace_frames=trace_frames, tcap=drv.tcap,
-              card=card)
+              card=card, program=program.records.get("window"), program_traced=traced)
     wanted = c.per_layer if trace else c.end_to_end
     metrics = {}
     for m in wanted:
@@ -210,19 +220,24 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device_name: str 
     breakdown = None
     if tw is not None:
         breakdown = {"device_ops": tw.top_ops(), "idle_gaps": tw.idle_gaps(spans.aside_records)}
+    if trace:
+        emit(json.dumps({"spans": program_spans.tables(tw, traced)
+                         if tw is not None and traced is not None else None}))
+        emit(json.dumps({"span_table": program.summaries.get("window")}))
+    checked, compared = drv.checked, tuple(drv.compared)
     drv.release()
     del drv, frames, ctx
     if on_card:
         torch.cuda.empty_cache()
 
     t = time.perf_counter()
-    numbers = check.run_checks(capture, cfg, device)
+    numbers = check.run_checks(capture, cfg, device, compared, c.roots)
     correct, rows = check.verdict(numbers, c.check["numbers"])
     print(f"slambench: the reference's comparison took {time.perf_counter() - t:.2f} s",
           file=sys.stderr)
-    control_numbers = check.run_checks(capture, cfg, device, control=True) if control else None
-    n_steps = capture.seen("step")
-    correct = correct and n_steps > 0 and frames_done > 0
+    control_numbers = (check.run_checks(capture, cfg, device, compared, c.roots, control=True)
+                       if control else None)
+    correct = correct and capture.seen(checked) > 0 and frames_done > 0
 
     bad = forbidden_modules()
     if bad:

@@ -1,7 +1,7 @@
-"""The readers of the port's own spans (slambench/harness/program_spans.py,
-slambench/program_trace.py) on the CPU: the tiny cell traced with the
-port's tracer on gives every span-reading metric of the window, and the
-result line keeps its keys; on planted records and a planted trace, device
+"""The readers of the port's own spans (slambench/harness/program_spans.py)
+on the CPU: the tiny cell's `--trace 1` run (slambench.run, which switches
+the port's tracer on) gives every span-reading metric of the window, and
+the result line keeps its keys; on planted records and a planted trace, device
 events are attributed to the span that launched them and idle time to the
 span it falls in; a context without the tracer's records reads None."""
 
@@ -11,7 +11,7 @@ import json
 import pytest
 import torch
 
-from slambench import program_trace, run
+from slambench import run
 from slambench.harness import program_spans
 from slambench.tests.conftest import DATA
 
@@ -19,14 +19,15 @@ SEED = 2 ** 31 + 11
 WINDOW_METRICS = ["extract_ms_per_frame", "projection_match_ms_per_frame",
                   "pose_opt_ms_per_frame", "local_ba_ms_per_keyframe",
                   "host_wait_ms_per_frame", "pose_latency_p95_ms"]
+SPAN_METRICS = WINDOW_METRICS + ["host_syncs_per_frame"]
 
 
 @pytest.fixture(scope="module")
 def traced_run():
     lines = []
-    res = program_trace.run("tiny_stereo.revisit", SEED, 60.0, device_name="cpu",
-                            bench_path=DATA / "BENCHMARK.json", root=DATA, emit=lines.append)
-    return res, lines
+    res = run.run("tiny_stereo.revisit", SEED, 60.0, trace=True, device_name="cpu",
+                  bench_path=DATA / "BENCHMARK.json", root=DATA, emit=lines.append)
+    return res, [json.loads(line) for line in lines]
 
 
 def test_the_tiny_cell_reads_every_window_span_metric(traced_run):
@@ -38,9 +39,9 @@ def test_the_tiny_cell_reads_every_window_span_metric(traced_run):
     m = res["metrics"]
     assert m["pose_latency_p95_ms"]["value"] > 0 and m["extract_ms_per_frame"]["value"] > 0
     # no traced frames on the CPU: no syncs counted, no device tables
-    assert "host_syncs_per_frame" not in m and res["spans"] is None
-    assert [next(iter(json.loads(line))) for line in lines] == ["setup", "work"]
-    table = res["span_table"]
+    assert [next(iter(line)) for line in lines] == ["setup", "work", "spans", "span_table"]
+    assert "host_syncs_per_frame" not in m and lines[2]["spans"] is None
+    table = lines[3]["span_table"]
     assert table["frame"]["count"] == res["attempted"]
     assert table["step.match"]["count"] == table["step.pose_opt"]["count"]
     # the tracer is off again, and the result line keeps slambench.run's keys
@@ -49,7 +50,7 @@ def test_the_tiny_cell_reads_every_window_span_metric(traced_run):
 
 
 def test_the_step_adds_up_to_its_parts_and_self_time(traced_run):
-    table = traced_run[0]["span_table"]
+    table = traced_run[1][3]["span_table"]
     parts = sum(table[n]["total_s"] for n in ("step.extract", "step.stereo", "step.match",
                                                "step.pose_opt"))
     # each total rounded to 0.1 ms
@@ -59,7 +60,7 @@ def test_the_step_adds_up_to_its_parts_and_self_time(traced_run):
 
 def test_a_context_without_the_tracers_records_reads_none():
     ctx = run.Ctx(trace=None, trace_frames=0)
-    for name in list(program_trace.SPAN_METRICS) + ["step_launches_per_frame"]:
+    for name in SPAN_METRICS + ["step_launches_per_frame"]:
         assert run.read_metric(name, ctx) is None, name
 
 
